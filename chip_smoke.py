@@ -15,7 +15,26 @@ Phases, each printing one JSON line:
                 counters read around it and an float64 twin as reference;
   5. times   -- CUDA-event times of each kernel beside its plain version and
                 its bound, objective+gradient and predict times;
-  6. profile -- device time by kernel over one objective+gradient.
+  6. profile -- device time by kernel over one objective+gradient;
+  7. kernels_fused -- the fused Gram-matvec (B5) against its plain twin for
+                the four families, the three accum modes and six shapes,
+                and its gradient moments (B6, through the autograd
+                Function) against autograd of the plain twin;
+  8. iterative -- the iterative exact-GP main path at bench.py's N=50,000
+                D=4 configuration in float32, two models: fused=True,
+                materialize=False (B5/B6) and the default materialized
+                Gram (B1, fast_grad): log_likelihood, objective and
+                gradient, predict on 256 new points, optimize(max_iters=2),
+                predict and predict_quantiles, launch counters read
+                around each step, a float64 materialized twin at the
+                same probes as reference, and the exact NLML (float64
+                Cholesky) at the start and after optimize;
+  9. iterative_times -- CUDA-event times of B5 and B6 at N=50,000 beside
+                their plain twins and bounds, each kernel's error there
+                checked against its plain twin, NLML+gradient and predict
+                times of both models, the materialized matvec's matmul;
+ 10. iterative_profile -- device time by kernel over one NLML+gradient of
+                each model.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -36,6 +55,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 SLICE_N, SLICE_D, N_PRED = 8192, 8, 2048
+
+# bench.py:456-485: the iterative exact GP at N=50k (CG + SLQ)
+ITER_N, ITER_D, ITER_PRED = 50_000, 4, 256
+ITER_OPTS = {"max_cg": 48, "n_probes": 8, "block": 2048}
+FAMILIES = {"RBF": 0, "Matern32": 1, "Matern52": 2, "Exponential": 3}
 
 
 def emit(obj) -> None:
@@ -252,7 +276,7 @@ def time_rbf_gram(rg, N, M, D):
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "library_ms": None}
 
 
-def profile_objective(m, x):
+def profile_objective(m, x, what=f"one objective_and_grad, N={SLICE_N} float32"):
     """Device time by kernel over one objective+gradient evaluation, from
     torch.profiler; the idle share is 1 - device time / host wall time."""
     import torch
@@ -268,10 +292,407 @@ def profile_objective(m, x):
     rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     device_ms = sum(r[0] for r in rows)
-    return {"phase": "profile", "what": f"one objective_and_grad, N={SLICE_N} float32",
+    return {"phase": "profile", "what": what,
             "wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
             "top": [{"kernel": k[:90], "device_ms": ms, "count": c} for ms, k, c in rows[:12]]}
+
+
+# --- the fused Gram-matvec (B5) and its gradient moments (B6) ---------------
+
+# the kernel against its plain twin, both float32 on the card, max error
+# relative to max|ref|; every accum mode runs as float32 FFMA. ~10x the
+# readings on an H100 (forward 2.6e-6, gradient moments 1.7e-7)
+FUSED_FWD_TOL = 3e-5
+FUSED_BWD_TOL = 2e-6
+# the same at the main path's N=50,000, D=4: B5 by R against the float32
+# plain twin, B6 against the float64 plain twin. ~10x the readings on an
+# H100 (B5 2.6e-6 at R=9, 1.45e-5 at R=256 (the wide kernel), 3.2e-6 at
+# R=1; B6 8.7e-8)
+FUSED_FWD_TOL_50K = {9: 3e-5, 256: 1.5e-4, 1: 3e-5}
+FUSED_BWD_TOL_50K = 1e-6
+
+
+def fused_inputs(N, M, D, R, seed, positive=False):
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(seed)
+    dev = "cuda"
+    X = torch.tensor(g.random((N, D)) * 4.0, dtype=torch.float32, device=dev)
+    X2 = None if M is None else torch.tensor(g.random((M, D)) * 4.0, dtype=torch.float32,
+                                             device=dev)
+    rows = N if M is None else M
+    shape = (rows,) if R is None else (rows, R)
+    V = g.random(shape) + 0.5 if positive else g.standard_normal(shape)
+    V = torch.tensor(V, dtype=torch.float32, device=dev)
+    ls = torch.tensor(math.sqrt(D) * (0.7 + 0.6 * g.random(D)), dtype=torch.float32, device=dev)
+    v = torch.tensor(1.3, dtype=torch.float32, device=dev)
+    return X, X2, V, ls, v
+
+
+def check_fused_matvec(fm, family, accum, shape):
+    """B5 through the public wrapper against stationary_gram_matvec_plain."""
+    import torch
+
+    label, N, M, D, R = shape
+    X, X2, V, ls, v = fused_inputs(N, M, D, R, seed=N + D + (R or 1) + 7 * family)
+    out = fm.stationary_gram_matvec_fused(X, V, v, ls, family=family, X2=X2, accum=accum)
+    Xs = X / ls
+    X2s = Xs if X2 is None else X2 / ls
+    V2 = V if V.ndim == 2 else V[:, None]
+    ref = fm.stationary_gram_matvec_plain(Xs, X2s, V2, v.reshape(1), family)
+    ref = ref if V.ndim == 2 else ref[:, 0]
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and torch.isfinite(out).all(),
+          f"gram_matvec_fused {label} family {family}: bad shape or non-finite output")
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    check(rel <= FUSED_FWD_TOL, f"gram_matvec_fused {label} family {family} {accum}: "
+                                f"rel err {rel} > {FUSED_FWD_TOL}")
+    return rel, float((out - ref).abs().max())
+
+
+def check_fused_moments(fm, family, D, N=4096, R=9):
+    """B6, through the autograd Function of the fused matvec, against
+    autograd of the plain twin: dvariance, dlengthscale (ARD), dnoise.
+    Positive V and cotangent keep the sums free of cancellation, so the
+    comparison measures the kernel and not float32 cancellation."""
+    import torch
+
+    X, _, V, ls, v = fused_inputs(N, None, D, R, seed=100 + D + family, positive=True)
+    _, _, G, _, _ = fused_inputs(N, None, D, R, seed=200 + D + family, positive=True)
+    noise = torch.full((N,), 0.1, dtype=torch.float32, device="cuda")
+
+    def grads(use_kernel):
+        vv, ll, nn = (t.detach().clone().requires_grad_(True) for t in (v, ls, noise))
+        if use_kernel:
+            y = fm.stationary_gram_matvec_fused_diff(X, V, vv, ll, nn, family, "exact")
+        else:
+            Xs = X / ll
+            y = fm.stationary_gram_matvec_plain(Xs, Xs, V, vv, family) + nn[:, None] * V
+        return torch.autograd.grad(torch.sum(G * y), [vv, ll, nn])
+
+    before = fm.moments_launches
+    got = grads(True)
+    check(fm.moments_launches == before + 1, "gram_moments: not one launch per backward")
+    rels = {}
+    for lab, a, b in zip(("dvariance", "dlengthscale", "dnoise"), got, grads(False)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        rels[lab] = rel
+        check(math.isfinite(rel) and rel <= FUSED_BWD_TOL,
+              f"gram_moments family {family} D={D}: {lab} rel err {rel} > {FUSED_BWD_TOL}")
+    return rels
+
+
+def run_fused_checks(fm):
+    shapes = [("square", 4096, None, 4, 9), ("ragged_vector", 3001, None, 4, None),
+              ("narrow_r4", 2048, None, 4, 4), ("r_chunks", 2048, None, 4, 130),
+              ("wide_d12", 2048, None, 12, 9), ("rectangular", 2048, 3000, 4, 9)]
+    fwd, worst = [], 0.0
+    for fname, fam in FAMILIES.items():
+        for accum in ("exact", "f32x3", "fast"):
+            for shape in shapes:
+                rel, err = check_fused_matvec(fm, fam, accum, shape)
+                worst = max(worst, err)
+                fwd.append({"family": fname, "accum": accum, "shape": shape[0], "rel_err": rel})
+    bwd = [{"family": fname, "D": D, "rel_err": check_fused_moments(fm, fam, D)}
+           for fname, fam in FAMILIES.items() for D in (4, 12)]
+    return {"phase": "kernels_fused", "gram_matvec_fused": fwd, "fwd_tol": FUSED_FWD_TOL,
+            "gram_moments": bwd, "bwd_tol": FUSED_BWD_TOL,
+            "max_fwd_rel_err": max(r["rel_err"] for r in fwd),
+            "max_bwd_rel_err": max(max(r["rel_err"].values()) for r in bwd)}, worst
+
+
+# --- the iterative exact-GP slice at N=50k ----------------------------------
+
+# the float32 fused model against the float64 materialized model at the same
+# probes (relative; the gradient max-abs relative): ~10x the readings on an
+# H100 (NLML 2.1e-5, gradient 1.5e-3). 48 CG steps do not converge here, so
+# float32 rounding moves the Krylov trajectory
+ITER_NLML_TOL = 2e-4
+ITER_GRAD_TOL = 2e-2
+# the float64 estimate against the exact NLML (float64 Cholesky) at the start
+ITER_SLQ_TOL = 0.1
+
+
+def iterative_data(seed=0):
+    """bench.py:463-467: X ~ U[0,10)^4, Y = sin(x_1) + 0.1 eps, float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.random((ITER_N, ITER_D)).astype(np.float32) * 10.0
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((ITER_N, 1))).astype(np.float32)
+    Xs = rng.random((ITER_PRED, ITER_D)).astype(np.float32) * 10.0
+    return X, Y, Xs
+
+
+def iterative_model(X, Y, dtype, fused):
+    """bench.py's two N=50k models: the default (materialize="auto") and
+    fused=True, materialize=False; RBF (not ARD), noise 0.1."""
+    from gpy_tpu_torch.inference import IterativeGaussianInference
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.models import GPRegression
+
+    opts = dict(ITER_OPTS, materialize=False, fused=True) if fused else dict(ITER_OPTS)
+    return GPRegression(X, Y, RBF(ITER_D, device="cuda", dtype=dtype), noise_var=0.1,
+                        inference_method=IterativeGaussianInference(**opts), device="cuda",
+                        dtype=dtype)
+
+
+def counters(rg, fm):
+    return {"rbf_gram": rg.launches, "gram_matvec_fused": fm.matvec_launches,
+            "gram_moments": fm.moments_launches}
+
+
+def reset_counters(rg, fm):
+    rg.launches = fm.matvec_launches = fm.moments_launches = 0
+
+
+def drive_iterative(m, Xs, rg, fm):
+    """The user's steps on one model, the launch counters read around each.
+
+    The predictive RMSE is checked at the starting parameters (the first
+    predict). After optimize(max_iters=2) it is recorded, not checked: two
+    L-BFGS-B steps take the noise variance from 0.1 to ~1e-4 and the
+    lengthscale to ~4, where 48 CG steps are far from converged and the SLQ
+    estimate of the NLML (~-1.3e5) is a bias the optimizer follows; the
+    reference computes the same estimator, and both models here follow it."""
+    import numpy as np
+    import torch
+
+    steps, marks = ["log_likelihood", "objective_and_grad", "predict_at_start", "optimize",
+                    "predict", "predict_quantiles"], []
+    truth = np.sin(Xs[:, :1])
+    t0 = time.perf_counter()
+    ll0 = m.log_likelihood().item()
+    marks.append(counters(rg, fm))
+    x0 = m.optimizer_array
+    f0, g0 = m._objective_and_grad(x0)
+    marks.append(counters(rg, fm))
+    mu0, _ = m.predict(Xs)
+    marks.append(counters(rg, fm))
+    res = m.optimize(max_iters=2)
+    marks.append(counters(rg, fm))
+    mu, var = m.predict(Xs)
+    marks.append(counters(rg, fm))
+    q_lo, q_hi = m.predict_quantiles(Xs)
+    marks.append(counters(rg, fm))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = {}
+    prev = {k: 0 for k in marks[0]}
+    for step, mark in zip(steps, marks):
+        per_step[step] = {k: mark[k] - prev[k] for k in mark}
+        prev = mark
+    check(math.isfinite(ll0) and math.isfinite(f0) and np.isfinite(g0).all(),
+          "iterative: non-finite NLML or gradient")
+    # on the SLQ estimate only: at these parameters it is biased low, and the
+    # exact NLML after optimize is recorded, not checked (run_iterative)
+    check(res.f_opt < f0, f"iterative: optimize did not lower the NLML ({f0} -> {res.f_opt})")
+    for name, a in (("mean at start", mu0), ("mean", mu), ("variance", var), ("q2.5", q_lo),
+                    ("q97.5", q_hi)):
+        check(a.shape == (ITER_PRED, 1) and np.isfinite(a).all(),
+              f"iterative: predicted {name} is not finite (N*, 1)")
+    check((var > 0).all() and (q_lo < mu).all() and (mu < q_hi).all(),
+          "iterative: predictive intervals out of order")
+    rmse0 = float(np.sqrt(np.mean((mu0 - truth) ** 2)))
+    check(rmse0 < float(np.std(truth)),
+          f"iterative: predictive RMSE {rmse0} at the start is no better than the mean")
+    return {"x0": x0, "f0": f0, "g0": g0, "nlml_after_2": res.f_opt, "status": res.status,
+            "optimize_checked_on_estimate_only": True,
+            "params_after_2": m.param_array.tolist(), "launches_per_step": per_step,
+            "launches": marks[-1], "pred_rmse_vs_sin_at_start": rmse0,
+            "pred_rmse_vs_sin_after_2": float(np.sqrt(np.mean((mu - truth) ** 2))),
+            "std_sin": float(np.std(truth)), "seconds": wall}
+
+
+def exact_nlml_f64(X, Y, params):
+    """-log p(Y) by a float64 Cholesky of the whole Gram: what the CG + SLQ
+    estimate approximates. params = (variance, lengthscale, noise) of the
+    non-ARD RBF model; the noise gets the iterative path's 1e-6. Peak
+    device memory ~40 GB (the Gram and its factor)."""
+    import torch
+    from gpy_tpu_torch.kern import RBF
+
+    v, ls, noise = (float(p) for p in params)
+    Xt = torch.tensor(X, dtype=torch.float64, device="cuda")
+    Yt = torch.tensor(Y, dtype=torch.float64, device="cuda")
+    with torch.no_grad():
+        K = RBF(ITER_D, variance=v, lengthscale=ls, device="cuda", dtype=torch.float64).K(Xt)
+        K.diagonal().add_(noise + 1e-6)
+        L, info = torch.linalg.cholesky_ex(K)
+        del K
+        check(int(info) == 0, "exact NLML: the float64 Gram is not positive definite")
+        alpha = torch.cholesky_solve(Yt, L)
+        nlml = 0.5 * (float(torch.sum(Yt * alpha))
+                      + 2.0 * float(torch.sum(torch.log(torch.diagonal(L))))
+                      + ITER_N * math.log(2 * math.pi))
+    del L, alpha
+    torch.cuda.empty_cache()
+    return nlml
+
+
+def run_iterative(rg, fm):
+    """The iterative main path, each model driven with the counters set to 0
+    just before it and read just after."""
+    import numpy as np
+    import torch
+
+    X, Y, Xs = iterative_data()
+    rec, models = {"phase": "iterative", "N": ITER_N, "D": ITER_D, "n_pred": ITER_PRED,
+                   "options": ITER_OPTS, "dtype": "float32"}, {}
+    for tag, fused in (("fused", True), ("auto", False)):
+        m = iterative_model(X, Y, torch.float32, fused)
+        reset_counters(rg, fm)
+        r = drive_iterative(m, Xs, rg, fm)
+        models[tag] = (m, r)
+        rec[tag] = {k: v for k, v in r.items() if k not in ("x0", "g0")}
+        torch.cuda.empty_cache()
+    fused_steps = rec["fused"]["launches_per_step"]
+    for step, c in fused_steps.items():
+        check(c["gram_matvec_fused"] > 0, f"iterative fused: {step} launched no gram_matvec_fused")
+    check(fused_steps["objective_and_grad"]["gram_moments"] == 1,
+          "iterative fused: objective_and_grad did not launch gram_moments once")
+    for step, c in rec["auto"]["launches_per_step"].items():
+        check(c["rbf_gram"] > 0, f"iterative auto: {step} launched no rbf_gram")
+    check(rec["auto"]["launches"]["gram_matvec_fused"] == 0, "iterative auto: launched B5")
+
+    # float64 materialized twin at the fused model's initial parameters and
+    # the same probes (one torch.Generator seed on the same device)
+    m64 = iterative_model(X, Y, torch.float64, fused=False)
+    f64, g64 = m64._objective_and_grad(models["fused"][1]["x0"])
+    del m64
+    torch.cuda.empty_cache()
+    for tag in ("fused", "auto"):
+        r = models[tag][1]
+        nlml_rel = abs(r["f0"] - f64) / abs(f64)
+        grad_rel = float(np.max(np.abs(r["g0"] - g64)) / np.max(np.abs(g64)))
+        rec[tag]["nlml_rel_vs_f64"] = nlml_rel
+        rec[tag]["grad_rel_vs_f64"] = grad_rel
+    rec["nlml_f64"], rec["grad_f64"] = f64, g64.tolist()
+    rec["limits"] = {"nlml_rel": ITER_NLML_TOL, "grad_rel": ITER_GRAD_TOL}
+    check(rec["fused"]["nlml_rel_vs_f64"] <= ITER_NLML_TOL,
+          f"iterative: fused float32 NLML vs float64: rel {rec['fused']['nlml_rel_vs_f64']}")
+    check(rec["fused"]["grad_rel_vs_f64"] <= ITER_GRAD_TOL,
+          f"iterative: fused float32 gradient vs float64: rel {rec['fused']['grad_rel_vs_f64']}")
+
+    # the estimator against the exact NLML (float64 Cholesky), at the start
+    # and where two optimizer steps took the fused model
+    exact0 = exact_nlml_f64(X, Y, (1.0, 1.0, 0.1))
+    exact2 = exact_nlml_f64(X, Y, rec["fused"]["params_after_2"])
+    rec["exact_nlml_f64_at_start"] = exact0
+    rec["slq_rel_err_at_start"] = abs(f64 - exact0) / abs(exact0)
+    rec["exact_nlml_f64_after_2"] = exact2
+    rec["slq_rel_err_after_2"] = abs(rec["fused"]["nlml_after_2"] - exact2) / abs(exact2)
+    # at the start the 8-probe, 48-step estimate read 2.7% above the exact
+    # value on an H100; the limit catches a wrong logdet or quadratic term,
+    # not the estimator's own error. After optimize the estimate is not
+    # checked: it is far below the exact NLML there (PERF.md)
+    rec["limits"]["slq_rel_err_at_start"] = ITER_SLQ_TOL
+    check(rec["slq_rel_err_at_start"] <= ITER_SLQ_TOL,
+          f"iterative: SLQ NLML {f64} vs exact {exact0}: rel {rec['slq_rel_err_at_start']}")
+    return models, Xs, rec
+
+
+def fused_matvec_bound(N, M, D, R):
+    """Least time for B5 (float32): inputs read and the output written once
+    over the memory rate, or (3D+3) operations per Gram entry for K and 2R
+    for the contraction over the float32 peak."""
+    t_bytes = 4 * (N * D + M * D + M * R + N * R + 1) / PEAK_BYTES_S
+    t_ops = N * M * (3 * D + 3 + 2 * R) / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gram_moments_bound(N, D, R):
+    """Least time for B6 (float32): X, G and V read once and D+1 moments
+    written over the memory rate, or per Gram entry 2R operations for W,
+    3D+3 for K, 2 for the two weights and 3D for the moments."""
+    t_bytes = (4 * (N * D + 2 * N * R + 1) + 8 * (D + 1)) / PEAK_BYTES_S
+    t_ops = N * N * (2 * R + 6 * D + 5) / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_fused(fm, R, reps, plain_reps):
+    import torch
+
+    X, _, V, ls, v = fused_inputs(ITER_N, None, ITER_D, R, seed=11)
+    Xs = (X / ls).contiguous()
+    v1 = v.reshape(1)
+    ms = cuda_ms(lambda: fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0), reps=reps, warmup=1)
+    plain_ms = cuda_ms(lambda: fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0),
+                       reps=plain_reps, warmup=1)
+    out = fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0)
+    ref = fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0)
+    check(torch.isfinite(out).all(), f"gram_matvec_fused N={ITER_N} R={R}: non-finite output")
+    err = float((out - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    tol = FUSED_FWD_TOL_50K[R]
+    check(rel <= tol, f"gram_matvec_fused N={ITER_N} R={R}: rel err {rel} > {tol}")
+    bound_ms, bound_by = fused_matvec_bound(ITER_N, ITER_N, ITER_D, R)
+    return {"N": ITER_N, "D": ITER_D, "R": R, "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "rel_err": rel,
+            "rel_tol": tol, "library_ms": None}
+
+
+def time_moments(fm, R=9):
+    import torch
+
+    X, _, V, ls, v = fused_inputs(ITER_N, None, ITER_D, R, seed=12)
+    _, _, G, _, _ = fused_inputs(ITER_N, None, ITER_D, R, seed=13)
+    Xs = (X / ls).contiguous()
+    v1 = v.reshape(1)
+    ms = cuda_ms(lambda: fm.gram_moments_cuda(Xs, G, V, v1, 0), reps=10, warmup=1)
+    plain_ms = cuda_ms(lambda: fm.gram_moments_plain(Xs, G, V, v1, 0), reps=2, warmup=1)
+    a = fm.gram_moments_cuda(Xs, G, V, v1, 0)
+    check(torch.equal(a, fm.gram_moments_cuda(Xs, G, V, v1, 0)),
+          "gram_moments: two launches on the same inputs differ")
+    b = fm.gram_moments_plain(Xs.double(), G.double(), V.double(), v1.double(), 0)
+    check(torch.isfinite(a).all(), f"gram_moments N={ITER_N}: non-finite moments")
+    err = float((a - b).abs().max())
+    rel = err / float(b.abs().max())
+    check(rel <= FUSED_BWD_TOL_50K,
+          f"gram_moments N={ITER_N} R={R}: rel err {rel} vs float64 plain > {FUSED_BWD_TOL_50K}")
+    bound_ms, bound_by = gram_moments_bound(ITER_N, ITER_D, R)
+    return {"N": ITER_N, "D": ITER_D, "R": R, "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "repeats_bit_for_bit": True,
+            "max_abs_err_vs_f64_plain": err, "rel_err": rel, "rel_tol": FUSED_BWD_TOL_50K,
+            "max_elementwise_rel_err_vs_f64_plain": float(((a - b).abs() / b.abs()).max()),
+            "library_ms": None}
+
+
+def iterative_times(models, Xs, rg, fm, smi):
+    import torch
+
+    rec = {"phase": "iterative_times", "nvidia_smi": smi,
+           "gram_matvec_fused": [time_fused(fm, 9, reps=20, plain_reps=3),
+                                 time_fused(fm, 256, reps=3, plain_reps=2),
+                                 time_fused(fm, 1, reps=10, plain_reps=2)],
+           "gram_moments": [time_moments(fm)]}
+    torch.cuda.empty_cache()
+    for tag, (m, _) in models.items():
+        x = m.optimizer_array
+        reset_counters(rg, fm)
+        rec[f"objective_and_grad_ms_{tag}"] = host_ms(lambda: m._objective_and_grad(x),
+                                                      reps=3, warmup=1)
+        rec[f"launches_per_objective_and_grad_{tag}"] = {
+            k: c / 4 for k, c in counters(rg, fm).items()}
+        m.predict(Xs)  # the posterior at these parameters is cached from here on
+        rec[f"predict_ms_n{ITER_PRED}_posterior_cached_{tag}"] = host_ms(
+            lambda: m.predict(Xs), reps=2, warmup=0)
+    # the materialized path's CG product, for context: (P, P) f32 @ (P, 9)
+    from gpy_tpu_torch.ops.gram_matvec import gram_materialize
+
+    m = models["auto"][0]
+    with torch.no_grad():
+        K, P = gram_materialize(m.kern, m.X, noise=torch.full((ITER_N,), 0.1, device="cuda"),
+                                block=ITER_OPTS["block"])
+        V = torch.randn((P, 9), device="cuda")
+        rec["materialized_matvec_matmul_ms"] = cuda_ms(lambda: torch.matmul(K, V), reps=10)
+        rec["materialized_gram_gib"] = K.numel() * K.element_size() / 2**30
+    del K, V
+    torch.cuda.empty_cache()
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return rec
 
 
 def main() -> int:
@@ -281,6 +702,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from gpy_tpu_torch.ops import _build
+    from gpy_tpu_torch.ops import gram_matvec_fused as fm
     from gpy_tpu_torch.ops import rbf_gram as rg
 
     smi = nvidia_smi_line()
@@ -325,14 +747,51 @@ def main() -> int:
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "nvidia_smi": smi})
 
     emit(profile_objective(m, x))
+    del m
+    torch.cuda.empty_cache()
+
+    fused_rec, fused_err = run_fused_checks(fm)
+    emit(fused_rec)
+    torch.cuda.empty_cache()
+
+    models, Xi, iter_rec = run_iterative(rg, fm)
+    emit(iter_rec)
+    itimes = iterative_times(models, Xi, rg, fm, smi)
+    emit(itimes)
+    for tag, (mi, _) in models.items():
+        emit(profile_objective(mi, mi.optimizer_array,
+                               what=f"one objective_and_grad, iterative {tag}, N={ITER_N} float32"))
 
     main_shape = gram[0]
+    mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
+    mv_all = itimes["gram_matvec_fused"]
     emit({"kernels": [{
         "name": "rbf_gram", "route": "cuda", "source": "gpy_tpu_torch/csrc/rbf_gram.cu",
-        "replaces": "gpy_tpu/ops/pallas_gram.py:55", "launches": slice_rec["launches"],
+        "replaces": "gpy_tpu/ops/pallas_gram.py:55",
+        "launches": slice_rec["launches"] + sum(iter_rec[t]["launches"]["rbf_gram"]
+                                                for t in ("fused", "auto")),
         "max_abs_err": max(c["max_abs_err"] for c in checks if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
+    }, {
+        "name": "gram_matvec_fused", "route": "cuda",
+        "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
+        "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:71",
+        "launches": iter_rec["fused"]["launches"]["gram_matvec_fused"],
+        "max_abs_err": max([fused_err] + [t["max_abs_err"] for t in mv_all]),
+        "main_path_rel_err": {f"R{t['R']}": t["rel_err"] for t in mv_all},
+        "main_path_rel_tol": {f"R{t['R']}": t["rel_tol"] for t in mv_all},
+        "ms": mv["ms"], "plain_ms": mv["plain_ms"],
+        "bound_ms": mv["bound_ms"], "bound_by": mv["bound_by"], "library_ms": None,
+    }, {
+        "name": "gram_moments", "route": "cuda",
+        "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
+        "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:268",
+        "launches": iter_rec["fused"]["launches"]["gram_moments"],
+        "max_abs_err": mom["max_abs_err_vs_f64_plain"], "main_path_rel_err": mom["rel_err"],
+        "main_path_rel_tol": FUSED_BWD_TOL_50K, "ms": mom["ms"],
+        "plain_ms": mom["plain_ms"], "bound_ms": mom["bound_ms"], "bound_by": mom["bound_by"],
+        "library_ms": None,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

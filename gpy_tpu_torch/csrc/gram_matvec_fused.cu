@@ -1,0 +1,547 @@
+// Fused stationary Gram-matvec (B5) and its gradient moments (B6) for
+// Hopper (sm_90a), float32.
+//
+// B5:  out[i, c] = sum_j K(xs_i, x2s_j) V[j, c]
+// B6:  mom = [ sum_ij W_ij K_ij / v,  sum_ij W_ij (-dK/dr2)_ij dx_ij,d^2  (d = 1..D) ]
+//      with W = G V' (square Gram: both sides are xs)
+//
+// K is a stationary family of the squared scaled distance r2 (xs, x2s are the
+// lengthscale-scaled inputs): 0 RBF v exp(-r2/2); 1 Matern32
+// v (1 + s) exp(-s), s = sqrt(3) r; 2 Matern52 v (1 + s + s^2/3) exp(-s),
+// s = sqrt(5) r; 3 Exponential v exp(-r); r = sqrt(r2 + 1e-30) as in the
+// reference. v is a one-element device tensor, read on the device.
+//
+// Replaces the TPU kernels gpy_tpu/ops/pallas_gram_matvec.py:71
+// (_pallas_call, pallas_call at :144) and :268 (_pallas_gram_moments,
+// pallas_call at :312). Those walk 512x512 tiles in grid order and carry
+// the sum in the output block from one grid step to the next; they pad N
+// to 512 rows and R to 128 lanes, and use the expansion |x|^2 + |x'|^2 -
+// 2 x.x' (clamped) above D = 8.
+//
+// Here r2 is a sum of direct squared differences for every D (exact; a
+// square Gram's diagonal is exactly v), ragged edges are masked instead of
+// padded, and every index that multiplies two extents is 64-bit (N*M is
+// 2.5e9 at N = 50k).
+//
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
+// cores): at N = M = 50,000, D = 4, R = 9 the kernel reads ~2.6 MB and
+// writes 1.8 MB (~1.3 us) but does ~(3D + 3) + 2R = 33 operations per
+// entry, 8.3e10 in all (~1.2 ms). It is bound by operations, and the exp
+// of every entry also runs on the special-function units.
+//
+// B5 design: one 256-thread block owns 64 output rows and one chunk of RC
+// right-hand-side columns (grid.y walks the chunks, so any R works). It
+// walks every 64-column tile of X2: the tile's inputs are staged 16
+// dimensions at a time in shared memory (transposed and padded, as in
+// rbf_gram.cu), each thread forms a 4x4 block of K in registers, and
+// contracts it with the tile's V rows (staged in shared memory with row
+// stride RC + 1, so the reads are conflict-free) into a 4 x RC accumulator,
+// RC the smallest of 1, 9, 16 that holds R (a wide variant, below, takes
+// R > 16). After the last tile the 16 threads that share rows sum their accumulators with
+// warp shuffles, and each output entry is written once: no atomics, and the
+// result does not depend on scheduling. All three accum modes of the
+// reference run here as float32 FFMA.
+//
+// B6 design: the same tile walk, square. Per tile a thread forms its 4x4
+// block of W (R staged 16 at a time), r2, K and -dK/dr2, then the moments
+// of one 16-dimension chunk (grid.y walks the chunks, so any D works; r2
+// is recomputed per chunk). Each thread sums its 16 entries in float and
+// adds the sum to float64 accumulators; the block reduces them in a fixed
+// order into one partial row, and a second one-block kernel sums the rows
+// in a fixed order in float64. The gradient repeats bit for bit.
+//
+// Exponential's -dK/dr2 = v exp(-r) / (2r) is ~5e14 v at r = sqrt(1e-30):
+// finite, and it multiplies an exactly-zero dx^2 on the diagonal. The build
+// uses no fast-math flag and flushes no denormals, so this stays 0, not
+// inf * 0.
+//
+// What this simple design leaves on the table: the tensor cores (the
+// contraction with V is a GEMM once R is large), TMA and a persistent
+// schedule, and re-staging of the row tile for every column tile.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;                // rows and columns per tile
+constexpr int kThreads = 16;             // threads per tile edge
+constexpr int kPer = kTile / kThreads;   // entries per thread per edge (4)
+constexpr int kChunk = 16;               // dims (or R columns) staged per pass
+constexpr int kBlock = kThreads * kThreads;
+constexpr int kMomStride = kChunk + 1;   // one partial row: [s0, m_1..m_16]
+
+// Blocks per SM the register budget is set for: 65,536 registers / (256
+// threads * 2) = 128 a thread. On an H100 this budget ran the 16-column
+// matvec and the moments faster than the compiler's unbounded choice.
+constexpr int kMinBlocks = 2;
+
+// K and -dK/dr2 from r2 for each family; constants are the float32 values
+// of the reference's jnp.sqrt(jnp.float32(3.0)) and sqrt(5).
+template <int FAM>
+__device__ __forceinline__ float k_of_r2(float r2, float v) {
+  if (FAM == 0) return v * expf(-0.5f * r2);
+  const float r = sqrtf(r2 + 1e-30f);
+  if (FAM == 1) {
+    const float s = 1.7320508075688772f * r;
+    return v * (1.0f + s) * expf(-s);
+  }
+  if (FAM == 2) {
+    const float s = 2.23606797749979f * r;
+    return v * (1.0f + s + s * s / 3.0f) * expf(-s);
+  }
+  return v * expf(-r);
+}
+
+template <int FAM>
+__device__ __forceinline__ void k_and_nkp(float r2, float v, float* k, float* nkp) {
+  if (FAM == 0) {
+    const float e = expf(-0.5f * r2);
+    *k = v * e;
+    *nkp = 0.5f * v * e;
+    return;
+  }
+  const float r = sqrtf(r2 + 1e-30f);
+  if (FAM == 1) {
+    const float s = 1.7320508075688772f * r;
+    const float e = expf(-s);
+    *k = v * (1.0f + s) * e;
+    *nkp = 1.5f * v * e;
+  } else if (FAM == 2) {
+    const float s = 2.23606797749979f * r;
+    const float e = expf(-s);
+    *k = v * (1.0f + s + s * s / 3.0f) * e;
+    *nkp = (5.0f / 6.0f) * v * (1.0f + s) * e;
+  } else {
+    const float e = expf(-r);
+    *k = v * e;
+    *nkp = 0.5f * v * e / r;
+  }
+}
+
+// Stage `kChunk` columns [k0, k0 + kChunk) of the 64 rows [row0, row0 + 64)
+// of a row-major (rows, width) matrix into s[k][row], zero outside.
+__device__ __forceinline__ void stage(float (*s)[kTile + 1], const float* __restrict__ a,
+                                      int64_t row0, int64_t rows, int k0, int width, int tid) {
+  for (int idx = tid; idx < kTile * kChunk; idx += kBlock) {
+    const int rr = idx / kChunk;
+    const int k = idx % kChunk;
+    const int gk = k0 + k;
+    const int64_t gr = row0 + rr;
+    s[k][rr] = (gr < rows && gk < width) ? a[gr * width + gk] : 0.0f;
+  }
+}
+
+template <int FAM, int RC>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+gram_matvec_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
+                   const float* __restrict__ vmat, const float* __restrict__ var,
+                   float* __restrict__ out, int64_t n, int64_t m, int d, int r) {
+  __shared__ float sx[kChunk][kTile + 1];
+  __shared__ float sx2[kChunk][kTile + 1];
+  __shared__ float sv[kTile][RC + 1];
+
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * kThreads + tx;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int c0 = blockIdx.y * RC;
+  const float vv = var[0];
+
+  float acc[kPer][RC];
+#pragma unroll
+  for (int a = 0; a < kPer; ++a)
+#pragma unroll
+    for (int c = 0; c < RC; ++c) acc[a][c] = 0.0f;
+
+  for (int64_t col0 = 0; col0 < m; col0 += kTile) {
+    float kv[kPer][kPer];
+#pragma unroll
+    for (int a = 0; a < kPer; ++a)
+#pragma unroll
+      for (int b = 0; b < kPer; ++b) kv[a][b] = 0.0f;
+
+    for (int d0 = 0; d0 < d; d0 += kChunk) {
+      __syncthreads();  // the previous pass is done with sx, sx2 and sv
+      stage(sx, xs, row0, n, d0, d, tid);
+      stage(sx2, x2s, col0, m, d0, d, tid);
+      if (d0 == 0) {
+        for (int idx = tid; idx < kTile * RC; idx += kBlock) {
+          const int j = idx / RC;
+          const int c = idx % RC;
+          const int64_t gj = col0 + j;
+          sv[j][c] = (gj < m && c0 + c < r) ? vmat[gj * r + c0 + c] : 0.0f;
+        }
+      }
+      __syncthreads();
+      const int kn = min(kChunk, d - d0);
+      for (int k = 0; k < kn; ++k) {
+        float xa[kPer], xb[kPer];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a) xa[a] = sx[k][ty + a * kThreads];
+#pragma unroll
+        for (int b = 0; b < kPer; ++b) xb[b] = sx2[k][tx + b * kThreads];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a)
+#pragma unroll
+          for (int b = 0; b < kPer; ++b) {
+            const float diff = xa[a] - xb[b];
+            kv[a][b] = fmaf(diff, diff, kv[a][b]);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int b = 0; b < kPer; ++b) {
+      const bool col_ok = col0 + tx + b * kThreads < m;
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) kv[a][b] = col_ok ? k_of_r2<FAM>(kv[a][b], vv) : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < kPer; ++b) {
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        const float vb = sv[tx + b * kThreads][c];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a) acc[a][c] = fmaf(kv[a][b], vb, acc[a][c]);
+      }
+    }
+  }
+
+  // the 16 threads of a half-warp share rows: sum over their columns
+#pragma unroll
+  for (int a = 0; a < kPer; ++a)
+#pragma unroll
+    for (int c = 0; c < RC; ++c)
+#pragma unroll
+      for (int off = kThreads / 2; off > 0; off >>= 1)
+        acc[a][c] += __shfl_xor_sync(0xffffffffu, acc[a][c], off);
+
+#pragma unroll
+  for (int a = 0; a < kPer; ++a) {
+    const int64_t row = row0 + ty + a * kThreads;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < RC; ++c)
+      if (c % kThreads == tx && c0 + c < r) out[row * r + c0 + c] = acc[a][c];
+  }
+}
+
+// B5 for R > 16: the block owns 64 rows and kWide right-hand-side columns.
+// Per column tile the K tile is formed as above and written to shared
+// memory once, then contracted with the tile's V rows as a small GEMM in
+// which each thread owns a 4x4 output block and reads 4 K and 4 V values
+// per column with two 16-byte loads; K is formed once per kWide columns of
+// R instead of once per 16.
+constexpr int kWide = 64;
+constexpr int kKStride = kTile + 4;  // rows of sK stay 16-byte aligned
+
+template <int FAM>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+gram_matvec_wide_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
+                        const float* __restrict__ vmat, const float* __restrict__ var,
+                        float* __restrict__ out, int64_t n, int64_t m, int d, int r) {
+  __shared__ float sx[kChunk][kTile + 1];
+  __shared__ float sx2[kChunk][kTile + 1];
+  __shared__ __align__(16) float sk[kTile][kKStride];  // sk[j][i] = K(i, j)
+  __shared__ __align__(16) float sv[kTile][kWide];
+
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * kThreads + tx;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int c0 = blockIdx.y * kWide;
+  const float vv = var[0];
+
+  float acc[kPer][kPer];  // rows 4 ty + a, columns c0 + 4 tx + c
+#pragma unroll
+  for (int a = 0; a < kPer; ++a)
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) acc[a][c] = 0.0f;
+
+  for (int64_t col0 = 0; col0 < m; col0 += kTile) {
+    float kv[kPer][kPer];
+#pragma unroll
+    for (int a = 0; a < kPer; ++a)
+#pragma unroll
+      for (int b = 0; b < kPer; ++b) kv[a][b] = 0.0f;
+
+    for (int d0 = 0; d0 < d; d0 += kChunk) {
+      __syncthreads();  // the previous tile is done with sx, sx2, sk and sv
+      stage(sx, xs, row0, n, d0, d, tid);
+      stage(sx2, x2s, col0, m, d0, d, tid);
+      __syncthreads();
+      const int kn = min(kChunk, d - d0);
+      for (int k = 0; k < kn; ++k) {
+        float xa[kPer], xb[kPer];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a) xa[a] = sx[k][ty + a * kThreads];
+#pragma unroll
+        for (int b = 0; b < kPer; ++b) xb[b] = sx2[k][tx + b * kThreads];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a)
+#pragma unroll
+          for (int b = 0; b < kPer; ++b) {
+            const float diff = xa[a] - xb[b];
+            kv[a][b] = fmaf(diff, diff, kv[a][b]);
+          }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kPer; ++b) {
+      const bool col_ok = col0 + tx + b * kThreads < m;
+#pragma unroll
+      for (int a = 0; a < kPer; ++a)
+        sk[tx + b * kThreads][ty + a * kThreads] = col_ok ? k_of_r2<FAM>(kv[a][b], vv) : 0.0f;
+    }
+    for (int idx = tid; idx < kTile * kWide; idx += kBlock) {
+      const int j = idx / kWide;
+      const int c = idx % kWide;
+      const int64_t gj = col0 + j;
+      sv[j][c] = (gj < m && c0 + c < r) ? vmat[gj * r + c0 + c] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < kTile; ++j) {
+      const float4 k4 = *reinterpret_cast<const float4*>(&sk[j][kPer * ty]);
+      const float4 v4 = *reinterpret_cast<const float4*>(&sv[j][kPer * tx]);
+      const float ka[kPer] = {k4.x, k4.y, k4.z, k4.w};
+      const float vc[kPer] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int a = 0; a < kPer; ++a)
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) acc[a][c] = fmaf(ka[a], vc[c], acc[a][c]);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < kPer; ++a) {
+    const int64_t row = row0 + kPer * ty + a;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) {
+      const int col = c0 + kPer * tx + c;
+      if (col < r) out[row * r + col] = acc[a][c];
+    }
+  }
+}
+
+template <int FAM>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+gram_moments_kernel(const float* __restrict__ xs, const float* __restrict__ g,
+                    const float* __restrict__ vmat, const float* __restrict__ var,
+                    double* __restrict__ partial, int64_t n, int d, int r) {
+  __shared__ float sa[kChunk][kTile + 1];
+  __shared__ float sb[kChunk][kTile + 1];
+  __shared__ double sred[kBlock / 32][kMomStride];
+
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * kThreads + tx;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int nchunks = gridDim.y;
+  const int dc0 = blockIdx.y * kChunk;   // this block's moment dimensions
+  const int dcn = min(kChunk, d - dc0);
+  const float vv = var[0];
+
+  double mom[kMomStride];
+#pragma unroll
+  for (int q = 0; q < kMomStride; ++q) mom[q] = 0.0;
+
+  for (int64_t col0 = 0; col0 < n; col0 += kTile) {
+    float w[kPer][kPer], r2[kPer][kPer];
+#pragma unroll
+    for (int a = 0; a < kPer; ++a)
+#pragma unroll
+      for (int b = 0; b < kPer; ++b) w[a][b] = r2[a][b] = 0.0f;
+
+    // W = G_rows V_cols'
+    for (int r0 = 0; r0 < r; r0 += kChunk) {
+      __syncthreads();
+      stage(sa, g, row0, n, r0, r, tid);
+      stage(sb, vmat, col0, n, r0, r, tid);
+      __syncthreads();
+      const int kn = min(kChunk, r - r0);
+      for (int k = 0; k < kn; ++k) {
+        float ga[kPer], vb[kPer];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a) ga[a] = sa[k][ty + a * kThreads];
+#pragma unroll
+        for (int b = 0; b < kPer; ++b) vb[b] = sb[k][tx + b * kThreads];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a)
+#pragma unroll
+          for (int b = 0; b < kPer; ++b) w[a][b] = fmaf(ga[a], vb[b], w[a][b]);
+      }
+    }
+    // r2 over every dimension
+    for (int d0 = 0; d0 < d; d0 += kChunk) {
+      __syncthreads();
+      stage(sa, xs, row0, n, d0, d, tid);
+      stage(sb, xs, col0, n, d0, d, tid);
+      __syncthreads();
+      const int kn = min(kChunk, d - d0);
+      for (int k = 0; k < kn; ++k) {
+        float xa[kPer], xb[kPer];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a) xa[a] = sa[k][ty + a * kThreads];
+#pragma unroll
+        for (int b = 0; b < kPer; ++b) xb[b] = sb[k][tx + b * kThreads];
+#pragma unroll
+        for (int a = 0; a < kPer; ++a)
+#pragma unroll
+          for (int b = 0; b < kPer; ++b) {
+            const float diff = xa[a] - xb[b];
+            r2[a][b] = fmaf(diff, diff, r2[a][b]);
+          }
+      }
+    }
+    // weights: s0 takes W K, the moments W (-dK/dr2); w is reused for the latter
+    float s0 = 0.0f;
+#pragma unroll
+    for (int b = 0; b < kPer; ++b) {
+      const bool col_ok = col0 + tx + b * kThreads < n;
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) {
+        float k, nkp;
+        k_and_nkp<FAM>(r2[a][b], vv, &k, &nkp);
+        s0 = fmaf(col_ok ? w[a][b] : 0.0f, k, s0);
+        w[a][b] = col_ok ? w[a][b] * nkp : 0.0f;
+      }
+    }
+    mom[0] += s0;
+    if (nchunks > 1) {  // bring this block's dimension chunk back
+      __syncthreads();
+      stage(sa, xs, row0, n, dc0, d, tid);
+      stage(sb, xs, col0, n, dc0, d, tid);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k >= dcn) break;
+      float p = 0.0f;
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) {
+        const float xa = sa[k][ty + a * kThreads];
+#pragma unroll
+        for (int b = 0; b < kPer; ++b) {
+          const float diff = xa - sb[k][tx + b * kThreads];
+          p = fmaf(w[a][b], diff * diff, p);
+        }
+      }
+      mom[1 + k] += p;
+    }
+  }
+
+  // block sum in a fixed order: warp shuffles, then warp 0..7 in turn
+#pragma unroll
+  for (int q = 0; q < kMomStride; ++q)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mom[q] += __shfl_xor_sync(0xffffffffu, mom[q], off);
+  const int warp = tid / 32;
+  if (tid % 32 == 0) {
+#pragma unroll
+    for (int q = 0; q < kMomStride; ++q) sred[warp][q] = mom[q];
+  }
+  __syncthreads();
+  if (tid < kMomStride) {
+    double s = 0.0;
+    for (int wi = 0; wi < kBlock / 32; ++wi) s += sred[wi][tid];
+    partial[(static_cast<int64_t>(blockIdx.x) * nchunks + blockIdx.y) * kMomStride + tid] = s;
+  }
+}
+
+// out[0] = sum_t s0_t / v; out[1 + dd] = sum_t m_t,dd; rows summed in order.
+__global__ void gram_moments_reduce(const double* __restrict__ partial,
+                                    const float* __restrict__ var, double* __restrict__ out,
+                                    int tiles, int nchunks, int d) {
+  const int q = threadIdx.x;
+  if (q > d) return;
+  const int chunk = q == 0 ? 0 : (q - 1) / kChunk;
+  const int slot = q == 0 ? 0 : 1 + (q - 1) % kChunk;
+  double s = 0.0;
+  for (int t = 0; t < tiles; ++t)
+    s += partial[(static_cast<int64_t>(t) * nchunks + chunk) * kMomStride + slot];
+  out[q] = q == 0 ? s / static_cast<double>(var[0]) : s;
+}
+
+template <int FAM, int RC>
+int launch_matvec(const float* xs, const float* x2s, const float* v, const float* vmat,
+                  float* out, int64_t n, int64_t m, int d, int r, cudaStream_t stream) {
+  const dim3 block(kThreads, kThreads);
+  const dim3 grid(static_cast<unsigned>((n + kTile - 1) / kTile),
+                  static_cast<unsigned>((r + RC - 1) / RC));
+  gram_matvec_kernel<FAM, RC><<<grid, block, 0, stream>>>(xs, x2s, vmat, v, out, n, m, d, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The R chunk: 1 for a vector, else the smaller of 9 and 16 that holds R;
+// above 16, chunks of kWide through the wide kernel. Nine is the CG width
+// of the N = 50k configuration (1 target + 8 probes).
+template <int FAM>
+int matvec_family(const float* xs, const float* x2s, const float* v, const float* vmat,
+                  float* out, int64_t n, int64_t m, int d, int r, cudaStream_t s) {
+  if (r <= 1) return launch_matvec<FAM, 1>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  if (r <= 9) return launch_matvec<FAM, 9>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  if (r <= 16) return launch_matvec<FAM, 16>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  const dim3 grid(static_cast<unsigned>((n + kTile - 1) / kTile),
+                  static_cast<unsigned>((r + kWide - 1) / kWide));
+  gram_matvec_wide_kernel<FAM><<<grid, dim3(kThreads, kThreads), 0, s>>>(
+      xs, x2s, vmat, v, out, n, m, d, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int FAM>
+int moments_family(const float* xs, const float* g, const float* vmat, const float* v,
+                   double* partial, double* out, int64_t n, int d, int r, cudaStream_t s) {
+  const int tiles = static_cast<int>((n + kTile - 1) / kTile);
+  const int nchunks = (d + kChunk - 1) / kChunk;
+  const dim3 block(kThreads, kThreads);
+  gram_moments_kernel<FAM><<<dim3(tiles, nchunks), block, 0, s>>>(xs, g, vmat, v, partial, n, d, r);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  gram_moments_reduce<<<1, 128, 0, s>>>(partial, v, out, tiles, nchunks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. Each call enqueues its launches on
+// `stream` and returns cudaGetLastError() (0 when the launches were
+// accepted); an unknown family returns cudaErrorInvalidValue.
+extern "C" {
+
+// xs (n, d), x2s (m, d), vmat (m, r), out (n, r); all float32, row-major.
+int gram_matvec_fused_f32(const float* xs, const float* x2s, const float* v,
+                          const float* vmat, float* out, int64_t n, int64_t m, int d,
+                          int r, int family, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case 0: return matvec_family<0>(xs, x2s, v, vmat, out, n, m, d, r, s);
+    case 1: return matvec_family<1>(xs, x2s, v, vmat, out, n, m, d, r, s);
+    case 2: return matvec_family<2>(xs, x2s, v, vmat, out, n, m, d, r, s);
+    case 3: return matvec_family<3>(xs, x2s, v, vmat, out, n, m, d, r, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// xs (n, d), g and vmat (n, r) float32; partial holds
+// ceil(n / 64) * ceil(d / 16) * 17 doubles of scratch; out (d + 1,) float64.
+int gram_moments_f32(const float* xs, const float* g, const float* vmat, const float* v,
+                     double* partial, double* out, int64_t n, int d, int r, int family,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case 0: return moments_family<0>(xs, g, vmat, v, partial, out, n, d, r, s);
+    case 1: return moments_family<1>(xs, g, vmat, v, partial, out, n, d, r, s);
+    case 2: return moments_family<2>(xs, g, vmat, v, partial, out, n, d, r, s);
+    case 3: return moments_family<3>(xs, g, vmat, v, partial, out, n, d, r, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* gram_matvec_fused_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

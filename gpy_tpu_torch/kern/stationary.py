@@ -1,10 +1,12 @@
 """Stationary kernels: K = f(r), r = scaled distance.
 
-Counterpart of gpy_tpu/kern/stationary.py:42-154 (GPy/kern/src/
+Counterpart of gpy_tpu/kern/stationary.py:42-281 (GPy/kern/src/
 stationary.py and rbf.py). RBF.K goes through ops.rbf_gram on every tensor:
-on the card that is the CUDA kernel, at every shape. The other stationary
-families (Matern, RatQuad, ...) and the RBF psi statistics wait for later
-slices.
+on the card that is the CUDA kernel, at every shape. The other families
+evaluate K_of_r(safe_sqrt(r2)) in torch ops; they are the families the
+fused Gram-matvec (ops/gram_matvec_fused.py) dispatches on. Their sde()
+forms, Cosine, ExpQuadCosine, Sinc, RatQuad and the RBF psi statistics wait
+for later slices.
 """
 from __future__ import annotations
 
@@ -13,9 +15,10 @@ import torch
 
 from ..core.transformations import Logexp
 from ..ops.rbf_gram import rbf_gram, scaled_dist2
+from ..util.linalg import safe_sqrt
 from .kern import Kern
 
-__all__ = ["Stationary", "RBF"]
+__all__ = ["Stationary", "RBF", "ExpQuad", "Exponential", "OU", "Matern32", "Matern52"]
 
 
 class Stationary(Kern):
@@ -51,7 +54,17 @@ class Stationary(Kern):
         Xs = X / ls
         return scaled_dist2(Xs, Xs if X2 is None else X2 / ls)
 
+    def _scaled_dist(self, X, X2=None):
+        return safe_sqrt(self._scaled_dist2(X, X2))
+
     # --- API --------------------------------------------------------------
+    def K_of_r(self, r):
+        raise NotImplementedError
+
+    def K(self, X, X2=None):
+        X, X2 = self._slice(X), self._slice(X2)
+        return self.K_of_r(self._scaled_dist(X, X2))
+
     def Kdiag(self, X):
         v = self.variance.values
         return v * torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
@@ -75,3 +88,53 @@ class RBF(Stationary):
         # diagonal is exactly v (GPy fills it explicitly)
         X, X2 = self._slice(X), self._slice(X2)
         return rbf_gram(X, X2, self.variance.values, self.lengthscale.values)
+
+
+class ExpQuad(RBF):
+    """Alias family: identical covariance, GPy keeps both (stationary.py:623)."""
+
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
+                 active_dims=None, name="ExpQuad", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+
+
+class Exponential(Stationary):
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
+                 active_dims=None, name="Exponential", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+
+    def K_of_r(self, r):
+        return self.variance.values * torch.exp(-r)
+
+
+class OU(Exponential):
+    """Ornstein-Uhlenbeck == Matern 1/2 (GPy: stationary.py:420)."""
+
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
+                 active_dims=None, name="OU", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+
+
+class Matern32(Stationary):
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
+                 active_dims=None, name="Mat32", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+
+    def K_of_r(self, r):
+        s3 = np.sqrt(3.0)
+        return self.variance.values * (1.0 + s3 * r) * torch.exp(-s3 * r)
+
+
+class Matern52(Stationary):
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
+                 active_dims=None, name="Mat52", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+
+    def K_of_r(self, r):
+        s5 = np.sqrt(5.0)
+        return self.variance.values * (1.0 + s5 * r + 5.0 / 3.0 * r**2) * torch.exp(-s5 * r)

@@ -1,0 +1,370 @@
+"""Fused stationary Gram-matvec (kernel B5), its gradient moments (B6), their
+plain twins and the differentiable form.
+
+Counterpart of gpy_tpu/ops/pallas_gram_matvec.py, with its public names.
+(K_family(X, X2) + diag(noise)) @ V is computed without storing the Gram:
+on a CUDA tensor by the kernel in csrc/gram_matvec_fused.cu (one launch per
+call, counted in `matvec_launches`), on a CPU tensor by
+`stationary_gram_matvec_plain`, the same function in torch ops, built in
+row blocks so that it never holds the whole Gram. The moments of the
+backward are `gram_moments_cuda` (counted in `moments_launches`) or
+`gram_moments_plain`. There is no fallback from one to the other: a CUDA
+tensor launches the kernel or raises.
+
+Like the reference, both kernels compute in float32 (X / lengthscale and V
+are cast) and the wrapper adds noise * V and casts back to V's dtype. The
+accum modes of the reference ("exact" 6-pass, "f32x3" 3-pass, "fast"
+1-pass bf16 on the TPU's matrix unit) all run as float32 FFMA here, which is
+at least as accurate as each; the string is still validated.
+
+Deviation: the reference forms r2 by the expansion |x|^2 + |x'|^2 - 2 x.x'
+above D = 8 (its :178-184); here every D sums direct differences, so a
+square Gram's diagonal is exactly v.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["rbf_gram_matvec_fused", "stationary_gram_matvec_fused",
+           "kern_gram_matvec_fused", "fused_available",
+           "stationary_gram_matvec_fused_diff", "kern_gram_matvec_fused_diff",
+           "stationary_gram_matvec_plain", "stationary_gram_matvec_cuda",
+           "gram_moments_plain", "gram_moments_cuda",
+           "matvec_launches", "moments_launches"]
+
+# stationary families sharing the fused tile structure (the reference's :46)
+_FAMILIES = {"RBF": 0, "ExpQuad": 0, "Matern32": 1, "Matern52": 2,
+             "Exponential": 3, "OU": 3}
+_ACCUM = ("exact", "f32x3", "fast")
+
+# launches of each CUDA kernel since import (or since a caller reset them)
+matvec_launches = 0
+moments_launches = 0
+
+_TILE = 64
+_CHUNK = 16              # R columns per grid.y step (B5) / dims per step (B6)
+_MOM_STRIDE = _CHUNK + 1
+_MAX_GRID_Y = 65535
+_MAX_MOMENTS = 128       # D + 1, the reference's lane limit
+_PLAIN_BLOCK_ENTRIES = 2**25
+_SQRT3 = math.sqrt(3.0)
+_SQRT5 = math.sqrt(5.0)
+_lib_handle = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    if _lib_handle is None:
+        lib = _build.load("gram_matvec_fused")
+        p = ctypes.c_void_p
+        lib.gram_matvec_fused_f32.argtypes = [p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [p]
+        lib.gram_matvec_fused_f32.restype = ctypes.c_int
+        lib.gram_moments_f32.argtypes = [p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [p]
+        lib.gram_moments_f32.restype = ctypes.c_int
+        lib.gram_matvec_fused_error_string.argtypes = [ctypes.c_int]
+        lib.gram_matvec_fused_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def fused_available(kern, device=None) -> bool:
+    """True if the fused path supports this kernel on this device.
+
+    Deviation: the reference is true on a TPU only, and elsewhere falls back
+    to the blockwise path; here it is true for the _FAMILIES kernels on
+    "cuda" (the kernel) and on "cpu" (its plain twin)."""
+    if device is None:
+        p = kern._first_param()
+        device = p.device if p is not None else "cpu"
+    return type(kern).__name__ in _FAMILIES and torch.device(device).type in ("cuda", "cpu")
+
+
+def _check_accum(accum):
+    if accum not in _ACCUM:
+        # an unknown string must not fall through to some default precision
+        raise ValueError(f"accum must be exact|f32x3|fast, got {accum!r}")
+
+
+# --- plain twins ------------------------------------------------------------
+
+def _direct_r2(Xa, Xb):
+    r2 = (Xa[:, 0:1] - Xb[None, :, 0]) ** 2
+    for d in range(1, Xa.shape[1]):
+        r2 = r2 + (Xa[:, d:d + 1] - Xb[None, :, d]) ** 2
+    return r2
+
+
+def _k_of_r2(family, r2, v):
+    """K from the squared scaled distance (the reference's _k_of_r2 :56-67)."""
+    if family == 0:
+        return v * torch.exp(-0.5 * r2)
+    r = torch.sqrt(r2 + 1e-30)
+    if family == 1:
+        s = _SQRT3 * r
+        return v * (1.0 + s) * torch.exp(-s)
+    if family == 2:
+        s = _SQRT5 * r
+        return v * (1.0 + s + s * s / 3.0) * torch.exp(-s)
+    return v * torch.exp(-r)
+
+
+def _neg_dk_dr2(family, r2, v):
+    """-dK/d(r^2) (the reference's _dk_dr2 :253-265, negated)."""
+    if family == 0:
+        return 0.5 * v * torch.exp(-0.5 * r2)
+    r = torch.sqrt(r2 + 1e-30)
+    if family == 1:
+        return 1.5 * v * torch.exp(-_SQRT3 * r)
+    if family == 2:
+        s = _SQRT5 * r
+        return (5.0 / 6.0) * v * (1.0 + s) * torch.exp(-s)
+    return 0.5 * v * torch.exp(-r) / r
+
+
+def _row_block(M):
+    return max(1, _PLAIN_BLOCK_ENTRIES // max(M, 1))
+
+
+def stationary_gram_matvec_plain(Xs, X2s, V, v, family=0):
+    """K_family(Xs, X2s) @ V in torch ops on scaled inputs, in row blocks
+    of at most 2**25 Gram entries; differentiable by autograd."""
+    b = _row_block(X2s.shape[0])
+    return torch.cat([_k_of_r2(family, _direct_r2(Xs[i:i + b], X2s), v) @ V
+                      for i in range(0, Xs.shape[0], b)], dim=0)
+
+
+def gram_moments_plain(Xs, G, V, v, family=0):
+    """(D+1,) moments of the backward on the square Gram of Xs, in torch ops
+    and row blocks: [sum W K / v, sum W (-dK/dr2) dx_d^2 for each d] with
+    W = G V'."""
+    N, D = Xs.shape
+    b = _row_block(N)
+    s0 = torch.zeros((), dtype=Xs.dtype, device=Xs.device)
+    mom = torch.zeros(D, dtype=Xs.dtype, device=Xs.device)
+    for i in range(0, N, b):
+        xa = Xs[i:i + b]
+        W = G[i:i + b] @ V.T
+        r2 = _direct_r2(xa, Xs)
+        s0 = s0 + torch.sum(W * _k_of_r2(family, r2, v))
+        Wp = W * _neg_dk_dr2(family, r2, v)
+        mom = mom + torch.stack([torch.sum(Wp * (xa[:, d:d + 1] - Xs[None, :, d]) ** 2)
+                                 for d in range(D)])
+    return torch.cat([(s0 / v).reshape(1), mom])
+
+
+# --- CUDA kernels -----------------------------------------------------------
+
+def _check(fn, tensors, first):
+    for name, t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} is on {t.device}, not a CUDA device")
+        if t.device != first.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, {tensors[0][0]} on {first.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} is {t.dtype}, not float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0):
+    """The B5 kernel on scaled float32 inputs: K_family(Xs, X2s) @ V, one
+    launch on the current stream."""
+    global matvec_launches
+    fn = "stationary_gram_matvec_cuda"
+    _check(fn, [("Xs", Xs), ("X2s", X2s), ("V", V), ("v", v)], Xs)
+    if Xs.ndim != 2 or X2s.ndim != 2 or Xs.shape[1] != X2s.shape[1] or Xs.shape[1] < 1:
+        raise ValueError(f"{fn}: shapes {tuple(Xs.shape)} and {tuple(X2s.shape)} are not "
+                         "(N, D) and (M, D) with D >= 1")
+    if V.ndim != 2 or V.shape[0] != X2s.shape[0]:
+        raise ValueError(f"{fn}: V is {tuple(V.shape)}, not (M={X2s.shape[0]}, R)")
+    if v.numel() != 1:
+        raise ValueError(f"{fn}: v has {v.numel()} elements, not 1")
+    if family not in (0, 1, 2, 3):
+        raise ValueError(f"{fn}: unknown family {family!r}")
+    N, D = Xs.shape
+    M, R = V.shape
+    if -(-R // _CHUNK) > _MAX_GRID_Y or D >= 2**31:
+        raise ValueError(f"{fn}: R={R} or D={D} is too large")
+    out = torch.empty((N, R), dtype=torch.float32, device=Xs.device)
+    if N == 0 or R == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(Xs.device):
+        rc = lib.gram_matvec_fused_f32(Xs.data_ptr(), X2s.data_ptr(), v.data_ptr(), V.data_ptr(),
+                                       out.data_ptr(), N, M, D, R, family, _stream(Xs))
+    if rc != 0:
+        raise RuntimeError(f"gram_matvec_fused kernel launch failed: "
+                           f"{lib.gram_matvec_fused_error_string(rc).decode()}")
+    matvec_launches += 1
+    return out
+
+
+def gram_moments_cuda(Xs, G, V, v, family=0):
+    """The B6 kernel: (D+1,) float64 moments on the square Gram of Xs (one
+    tile pass and a fixed-order reduction, on the current stream)."""
+    global moments_launches
+    fn = "gram_moments_cuda"
+    _check(fn, [("Xs", Xs), ("G", G), ("V", V), ("v", v)], Xs)
+    if Xs.ndim != 2 or Xs.shape[1] < 1 or G.ndim != 2 or G.shape != V.shape \
+            or G.shape[0] != Xs.shape[0] or G.shape[1] < 1:
+        raise ValueError(f"{fn}: shapes {tuple(Xs.shape)}, {tuple(G.shape)}, {tuple(V.shape)} "
+                         "are not (N, D), (N, R), (N, R) with D, R >= 1")
+    if v.numel() != 1:
+        raise ValueError(f"{fn}: v has {v.numel()} elements, not 1")
+    if family not in (0, 1, 2, 3):
+        raise ValueError(f"{fn}: unknown family {family!r}")
+    N, D = Xs.shape
+    R = G.shape[1]
+    if D + 1 > _MAX_MOMENTS or -(-D // _CHUNK) > _MAX_GRID_Y or R >= 2**31:
+        raise ValueError(f"{fn}: D={D} exceeds {_MAX_MOMENTS - 1} or R={R} is too large")
+    out = torch.empty(D + 1, dtype=torch.float64, device=Xs.device)
+    if N == 0:
+        return out.zero_()
+    tiles = -(-N // _TILE)
+    partial = torch.empty(tiles * -(-D // _CHUNK) * _MOM_STRIDE, dtype=torch.float64,
+                          device=Xs.device)
+    lib = _lib()
+    with torch.cuda.device(Xs.device):
+        rc = lib.gram_moments_f32(Xs.data_ptr(), G.data_ptr(), V.data_ptr(), v.data_ptr(),
+                                  partial.data_ptr(), out.data_ptr(), N, D, R, family,
+                                  _stream(Xs))
+    if rc != 0:
+        raise RuntimeError(f"gram_moments kernel launch failed: "
+                           f"{lib.gram_matvec_fused_error_string(rc).decode()}")
+    moments_launches += 1
+    return out
+
+
+def _matvec(Xs, X2s, V, v, family):
+    if Xs.device.type == "cpu":
+        return stationary_gram_matvec_plain(Xs, X2s, V, v, family)
+    return stationary_gram_matvec_cuda(Xs.contiguous(), X2s.contiguous(), V.contiguous(),
+                                       v.contiguous(), family)
+
+
+def _moments(Xs, G, V, v, family):
+    if Xs.device.type == "cpu":
+        return gram_moments_plain(Xs, G, V, v, family)
+    return gram_moments_cuda(Xs.contiguous(), G.contiguous(), V.contiguous(),
+                             v.contiguous(), family)
+
+
+# --- public API (the reference's names) -------------------------------------
+
+def _as(x, like, dtype=None):
+    return torch.as_tensor(x, dtype=dtype or like.dtype, device=like.device)
+
+
+def stationary_gram_matvec_fused(X, V, variance, lengthscale, family=0, noise=None,
+                                 X2=None, accum="exact"):
+    """(K_family(scaled dist) + diag(noise)) @ V, fused (family: _FAMILIES).
+
+    X: (N, D) rows of the product; X2: (M, D) columns (default X, the square
+    Gram); V: (M, R) or (M,); lengthscale a scalar or (D,). With X2 given the
+    product is the rectangular slab K(X, X2) @ V, and `noise` is refused.
+    Not differentiable (computed under no_grad): the differentiable form is
+    stationary_gram_matvec_fused_diff.
+    """
+    _check_accum(accum)
+    if X2 is not None and noise is not None:
+        raise ValueError("noise diagonal undefined for rectangular slabs")
+    with torch.no_grad():
+        V2 = V if V.ndim == 2 else V[:, None]
+        ls = _as(lengthscale, X)
+        Xs = (X / ls).to(torch.float32)
+        Xc = Xs if X2 is None else (X2 / ls).to(torch.float32)
+        v = _as(variance, X, torch.float32).reshape(1)
+        out = _matvec(Xs, Xc, V2.to(torch.float32), v, int(family))
+        if noise is not None:
+            out = out + noise[:, None] * V2
+        out = out.to(V2.dtype)
+    return out if V.ndim == 2 else out[:, 0]
+
+
+def rbf_gram_matvec_fused(X, V, variance, lengthscale, noise=None, accum="exact"):
+    """RBF specialization of stationary_gram_matvec_fused."""
+    return stationary_gram_matvec_fused(X, V, variance, lengthscale, family=0,
+                                        noise=noise, accum=accum)
+
+
+def kern_gram_matvec_fused(kern, X, V, noise=None, X2=None, accum="exact"):
+    """Dispatch on a kernel object (must satisfy fused_available)."""
+    fam = _FAMILIES[type(kern).__name__]
+    return stationary_gram_matvec_fused(
+        kern._slice(X), V, kern.variance.values, kern.lengthscale.values, family=fam,
+        noise=noise, X2=None if X2 is None else kern._slice(X2), accum=accum)
+
+
+class _FusedDiffFn(torch.autograd.Function):
+    """(K + diag(noise)) @ V with the reference's custom VJP (:351-381):
+        dV = (K + noise) @ G     (one more B5 launch, only when V needs it)
+        dvariance, dlengthscale  from the B6 moments
+        dnoise_i = sum_r G_ir V_ir;  dX = 0 (X is data)."""
+
+    @staticmethod
+    def forward(ctx, X, V, variance, lengthscale, noise, family, accum):
+        y = stationary_gram_matvec_fused(X, V, variance, lengthscale, family=family,
+                                         noise=noise, accum=accum)
+        ctx.save_for_backward(X, V, variance, lengthscale, noise)
+        ctx.family = family
+        ctx.accum = accum
+        return y
+
+    @staticmethod
+    def backward(ctx, G):
+        X, V, variance, lengthscale, noise = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        G2 = G if G.ndim == 2 else G[:, None]
+        V2 = V if V.ndim == 2 else V[:, None]
+        dX = dV = dvar = dls = dnoise = None
+        if need[1]:
+            dV = stationary_gram_matvec_fused(X, G2, variance, lengthscale, family=ctx.family,
+                                              noise=noise, accum=ctx.accum)
+            dV = (dV if V.ndim == 2 else dV[:, 0]).to(V.dtype)
+        if need[2] or need[3]:
+            D = X.shape[1]
+            ls = lengthscale.to(X.dtype)
+            Xs = (X / ls).to(torch.float32)
+            v = variance.detach().to(torch.float32).reshape(1)
+            mom = _moments(Xs, G2.to(torch.float32), V2.to(torch.float32), v, ctx.family)
+            dvar = mom[0].to(variance.dtype).reshape(variance.shape)
+            ls_b = torch.broadcast_to(ls, (D,))
+            dl_full = (2.0 / ls_b) * mom[1:1 + D].to(ls_b.dtype)
+            if lengthscale.numel() == 1:
+                dls = torch.sum(dl_full).to(lengthscale.dtype).reshape(lengthscale.shape)
+            else:
+                dls = dl_full.to(lengthscale.dtype)
+        if need[4]:
+            dnoise = torch.sum(G2 * V2, dim=1).to(noise.dtype)
+        if need[0]:
+            dX = torch.zeros_like(X)
+        return dX, dV, dvar, dls, dnoise, None, None
+
+
+def stationary_gram_matvec_fused_diff(X, V, variance, lengthscale, noise, family=0,
+                                      accum="f32x3"):
+    """Differentiable (K_family + diag(noise)) @ V through the fused kernels.
+
+    Square Gram only; gradients flow to V, variance, lengthscale and noise.
+    X is data (zero gradient). `noise` must be an (N,) tensor.
+    """
+    _check_accum(accum)
+    variance = _as(variance, X)
+    lengthscale = _as(lengthscale, X)
+    return _FusedDiffFn.apply(X, V, variance, lengthscale, noise, int(family), accum)
+
+
+def kern_gram_matvec_fused_diff(kern, X, V, noise, accum="f32x3"):
+    """Differentiable dispatch on a kernel object (square Gram + noise)."""
+    fam = _FAMILIES[type(kern).__name__]
+    return stationary_gram_matvec_fused_diff(
+        kern._slice(X), V, kern.variance.values, kern.lengthscale.values, noise, fam, accum)

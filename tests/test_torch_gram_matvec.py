@@ -1,0 +1,220 @@
+"""gpy_tpu_torch.ops.gram_matvec and ops.gram_matvec_fused (kernels B5 and
+B6) against gpy_tpu.
+
+On the CPU the fused functions run their plain twins; the CUDA kernels are
+held against those twins on the card by chip_smoke.py. Here the twins are
+held against gpy_tpu's Pallas kernels run in interpret mode, as
+tests/test_pallas_gram_matvec.py runs them, and the blockwise and
+materialized products against gpy_tpu's at float64.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gpy_tpu.kern as gk
+import gpy_tpu.ops.gram_matvec as jgm
+import gpy_tpu.ops.pallas_gram_matvec as jpgm
+import gpy_tpu_torch.kern as tk
+import gpy_tpu_torch.ops.gram_matvec as tgm
+import gpy_tpu_torch.ops.gram_matvec_fused as tf
+
+FAMILY = {"RBF": 0, "Matern32": 1, "Matern52": 2, "Exponential": 3}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _kern_pair(name, D, ls, variance=0.9):
+    return (getattr(gk, name)(D, variance=variance, lengthscale=ls, ARD=True),
+            getattr(tk, name)(D, variance=variance, lengthscale=ls, ARD=True, device="cpu",
+                              dtype=torch.float64))
+
+
+# --- blockwise and materialized products (float64) --------------------------
+
+@pytest.mark.parametrize("name,vector", [("Matern52", False), ("RBF", True)])
+def test_gram_matvec_matches_reference(name, vector):
+    rng = np.random.default_rng(1)
+    X = rng.random((300, 3)) * 5.0
+    V = rng.standard_normal(300) if vector else rng.standard_normal((300, 4))
+    noise = 0.1 + 0.05 * rng.random(300)
+    jk, tkern = _kern_pair(name, 3, [1.1, 0.8, 1.3])
+    # block 128 does not divide N: the ragged last block
+    ref = jgm.gram_matvec(jk, jnp.asarray(X), jnp.asarray(V), noise=jnp.asarray(noise), block=128)
+    got = tgm.gram_matvec(tkern, _t(X), _t(V), noise=_t(noise), block=128)
+    assert got.shape == V.shape
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-10, atol=1e-12)
+
+
+def test_gram_matvec_gradient_holds_one_tile_and_matches_dense():
+    """Autograd through the checkpointed blocks equals autograd through the
+    dense K at float64."""
+    rng = np.random.default_rng(2)
+    X = rng.random((200, 3)) * 4.0
+    U = _t(rng.standard_normal((200, 3)))
+    _, tkern = _kern_pair("Matern32", 3, [1.0, 0.7, 1.2])
+    noise = torch.full((200,), 0.2, dtype=torch.float64, requires_grad=True)
+    params = [tkern.variance.raw, tkern.lengthscale.raw, noise]
+    got = torch.autograd.grad(torch.sum(U * tgm.gram_matvec(tkern, _t(X), U, noise, block=64)),
+                              params)
+    dense = (tkern.K(_t(X)) + torch.diag(noise)) @ U
+    want = torch.autograd.grad(torch.sum(U * dense), params)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-10)
+
+
+@pytest.mark.parametrize("symmetric", [False, True], ids=["row_strip", "symmetric"])
+@pytest.mark.parametrize("out_dtype", [None, "bfloat16"])
+def test_gram_materialize_matches_reference(symmetric, out_dtype):
+    rng = np.random.default_rng(5)
+    X = rng.random((700, 3)) * 5  # 700 % 256 != 0: padding rows and columns
+    noise = 0.1 + 0.01 * rng.random(700)
+    jk, tkern = _kern_pair("RBF", 3, [1.0, 1.2, 0.9], variance=1.0)
+    Kj, Pj = jgm.gram_materialize(jk, jnp.asarray(X), noise=jnp.asarray(noise), block=256,
+                                  symmetric=symmetric, out_dtype=out_dtype)
+    with torch.no_grad():
+        Kt, Pt = tgm.gram_materialize(tkern, _t(X), noise=_t(noise), block=256,
+                                      symmetric=symmetric, out_dtype=out_dtype)
+        Kr, _ = tgm.gram_materialize(tkern, _t(X), noise=_t(noise), block=256,
+                                     out_dtype=out_dtype)
+    assert Pt == Pj == 768
+    assert str(Kt.dtype).replace("torch.", "") == str(Kj.dtype)
+    Kj32 = np.asarray(Kj.astype(jnp.float32) if out_dtype else Kj)
+    Kt32 = Kt.to(torch.float32 if out_dtype else torch.float64).numpy()
+    if out_dtype:  # a bfloat16 rounding may land one ulp apart
+        np.testing.assert_allclose(Kt32, Kj32, rtol=2 ** -7, atol=0)
+    else:
+        np.testing.assert_allclose(Kt32, Kj32, rtol=1e-12, atol=1e-14)
+    assert np.all(Kt32[700:] == 0) and np.all(Kt32[:, 700:] == 0)
+    assert torch.equal(Kt, Kr)  # the symmetric build equals the row-strip build
+
+
+# --- B5: the fused matvec's plain twin against the Pallas kernel ------------
+
+def _fused_inputs(N, D, R, seed, M=None):
+    rng = np.random.default_rng(seed)
+    X = (rng.random((N, D)) * 3.0).astype(np.float32)
+    X2 = None if M is None else (rng.random((M, D)) * 3.0).astype(np.float32)
+    V = rng.standard_normal((N if M is None else M, R)).astype(np.float32)
+    ls = (0.6 + rng.random(D)).astype(np.float32) * np.sqrt(D / 3.0)
+    return X, X2, V, ls
+
+
+# float32 agreement of the twin with the Pallas kernel for each accum mode:
+# "exact" is a float32 product on both sides; the reference's "f32x3" and
+# "fast" are its documented error classes (tests/test_pallas_gram_matvec.py)
+ACCUM_TOL = {"exact": 2e-5, "f32x3": 3e-4, "fast": 3e-2}
+
+
+def _rel(got, ref):
+    return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+
+
+@pytest.mark.parametrize("accum", ["exact", "f32x3", "fast"])
+@pytest.mark.parametrize("name", list(FAMILY))
+def test_fused_twin_matches_pallas_kernel(name, accum):
+    X, _, V, ls = _fused_inputs(600, 3, 5, seed=FAMILY[name])
+    noise = np.full(600, 0.2, np.float32)
+    ref = np.asarray(jpgm.stationary_gram_matvec_fused(
+        jnp.asarray(X), jnp.asarray(V), 1.3, jnp.asarray(ls), family=FAMILY[name],
+        noise=jnp.asarray(noise), interpret=True, accum=accum))
+    got = tf.stationary_gram_matvec_fused(_t(X), _t(V), 1.3, _t(ls), family=FAMILY[name],
+                                          noise=_t(noise), accum=accum)
+    assert got.dtype == torch.float32 and got.shape == (600, 5)
+    assert _rel(got.numpy(), ref) < ACCUM_TOL[accum]
+
+
+@pytest.mark.parametrize("name", list(FAMILY))
+def test_fused_twin_matches_pallas_kernel_wide_inputs(name):
+    """D = 12: the reference forms r2 by the expansion above D = 8, the port
+    by direct differences; they agree to float32 rounding of |x|^2."""
+    X, _, V, ls = _fused_inputs(520, 12, 9, seed=30 + FAMILY[name])
+    kw = dict(family=FAMILY[name], accum="exact")
+    ref = np.asarray(jpgm.stationary_gram_matvec_fused(
+        jnp.asarray(X), jnp.asarray(V), 0.7, jnp.asarray(ls), interpret=True, **kw))
+    got = tf.stationary_gram_matvec_fused(_t(X), _t(V), 0.7, _t(ls), **kw)
+    assert _rel(got.numpy(), ref) < ACCUM_TOL["exact"]
+
+
+def test_fused_twin_rectangular_slab():
+    X, X2, V, ls = _fused_inputs(520, 3, 5, seed=6, M=1030)
+    jk = gk.RBF(3, variance=1.2, lengthscale=ls, ARD=True)
+    tkern = tk.RBF(3, variance=1.2, lengthscale=ls, ARD=True, device="cpu", dtype=torch.float32)
+    ref = np.asarray(jpgm.kern_gram_matvec_fused(jk, jnp.asarray(X), jnp.asarray(V),
+                                                 X2=jnp.asarray(X2), interpret=True))
+    got = tf.kern_gram_matvec_fused(tkern, _t(X), _t(V), X2=_t(X2))
+    assert got.shape == (520, 5)
+    assert _rel(got.numpy(), ref) < ACCUM_TOL["exact"]
+    with pytest.raises(ValueError, match="rectangular"):
+        tf.kern_gram_matvec_fused(tkern, _t(X), _t(V), X2=_t(X2), noise=torch.ones(520))
+
+
+def test_fused_twin_ragged_vector():
+    X, _, V, ls = _fused_inputs(700, 2, 1, seed=1)
+    v = V[:, 0]
+    ref = np.asarray(jpgm.rbf_gram_matvec_fused(jnp.asarray(X), jnp.asarray(v), 1.0, 0.7,
+                                                interpret=True))
+    got = tf.rbf_gram_matvec_fused(_t(X), _t(v), 1.0, 0.7)
+    assert got.shape == (700,)
+    assert _rel(got.numpy(), ref) < ACCUM_TOL["exact"]
+
+
+# --- B6: the differentiable form's backward against the reference VJP -------
+
+@pytest.mark.parametrize("ARD", [True, False], ids=["ARD", "scalar_ls"])
+@pytest.mark.parametrize("name", list(FAMILY))
+def test_fused_diff_vjp_matches_reference(name, ARD):
+    """jax.vjp of stationary_gram_matvec_fused_diff (B6 in interpret mode)
+    against torch autograd of the port's (B6's plain twin): dV, dvariance,
+    dlengthscale, dnoise, and dX = 0. float32 kernels on both sides: the
+    tolerances are float32 sums of ~N^2 terms."""
+    rng = np.random.default_rng(40 + FAMILY[name])
+    N, D, R = 600, 3, 4
+    X = rng.random((N, D)) * 3.0
+    V = rng.standard_normal((N, R))
+    G = rng.standard_normal((N, R))
+    noise = 0.1 + 0.05 * rng.random(N)
+    ls = np.array([0.9, 1.2, 0.7]) if ARD else np.asarray(1.1)
+    fam = FAMILY[name]
+
+    def f(X_, V_, v_, l_, n_):
+        return jpgm.stationary_gram_matvec_fused_diff(X_, V_, v_, l_, n_, fam, "exact")
+
+    y_ref, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (X, V, 0.8, ls, noise)))
+    dX_r, dV_r, dv_r, dl_r, dn_r = vjp(jnp.asarray(G))
+
+    leaves = [_t(a).requires_grad_(True) for a in (X, V, 0.8, ls, noise)]
+    y = tf.stationary_gram_matvec_fused_diff(*leaves, family=fam, accum="exact")
+    dX, dV, dv, dl, dn = torch.autograd.grad(y, leaves, grad_outputs=_t(G))
+    assert _rel(y.detach().numpy(), np.asarray(y_ref)) < 2e-5
+    assert torch.equal(dX, torch.zeros_like(dX))
+    assert np.all(np.asarray(dX_r) == 0)
+    assert _rel(dV.numpy(), np.asarray(dV_r)) < 2e-5
+    assert dv.shape == () and dl.shape == ls.shape
+    np.testing.assert_allclose(dv.numpy(), np.asarray(dv_r), rtol=1e-4)
+    np.testing.assert_allclose(dl.numpy(), np.asarray(dl_r), rtol=1e-4)
+    np.testing.assert_allclose(dn.numpy(), np.asarray(dn_r), rtol=1e-12)
+
+
+def test_fused_diff_skips_dV_for_a_detached_V(monkeypatch):
+    """The surrogate's V is detached: the backward then runs the moments
+    only, not a second matvec."""
+    calls = []
+    real = tf._matvec
+    monkeypatch.setattr(tf, "_matvec", lambda *a: calls.append(1) or real(*a))
+    X = torch.rand(50, 2, dtype=torch.float64)
+    v = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+    ls = torch.tensor([0.5, 0.7], dtype=torch.float64, requires_grad=True)
+    y = tf.stationary_gram_matvec_fused_diff(X, torch.rand(50, 3, dtype=torch.float64), v, ls,
+                                             torch.full((50,), 0.1, dtype=torch.float64))
+    torch.autograd.grad(y.sum(), [v, ls])
+    assert len(calls) == 1
+

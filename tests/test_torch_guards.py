@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from gpy_tpu_torch.kern import RBF
+from gpy_tpu_torch.inference import IterativeGaussianInference
+from gpy_tpu_torch.kern import RBF, Matern32
 from gpy_tpu_torch.models import GPRegression
+from gpy_tpu_torch.ops import gram_matvec_fused as tf
 from gpy_tpu_torch.ops import rbf_gram as tg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,7 +50,8 @@ def test_port_imports_neither_jax_nor_gpy_tpu():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, gpy_tpu_torch, gpy_tpu_torch.models, gpy_tpu_torch.ops.rbf_gram; "
+    code = ("import sys, gpy_tpu_torch, gpy_tpu_torch.models, gpy_tpu_torch.ops.rbf_gram, "
+            "gpy_tpu_torch.ops.gram_matvec_fused, gpy_tpu_torch.inference.iterative; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gpy_tpu')]; "
             "assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -84,3 +87,43 @@ def test_cpu_tensors_never_launch_the_kernel():
     x = torch.zeros((3, 2), dtype=torch.float64)
     with pytest.raises(ValueError, match="not a CUDA device"):
         tg.rbf_gram_cuda(x, x, torch.ones((), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("kern", [RBF, Matern32])
+def test_cpu_fused_fit_never_launches_the_fused_kernels(kern):
+    """A fused iterative fit on CPU tensors runs B5/B6's plain twins: the
+    launch counters stay 0 and the CUDA library is never loaded."""
+    rng = np.random.default_rng(1)
+    X = rng.random((80, 2)) * 4.0
+    Y = np.sin(X[:, :1])
+    inf = IterativeGaussianInference(max_cg=12, n_probes=2, fused=True, materialize=False)
+    m = GPRegression(X, Y, kern(2, ARD=True, device="cpu"), noise_var=0.1,
+                     inference_method=inf, device="cpu")
+    m.optimize(max_iters=2)
+    m.predict(X[:5])
+    assert tf.matvec_launches == tf.moments_launches == 0
+    assert tf._lib_handle is None and tg.launches == 0
+
+
+def test_cuda_only_entry_points_refuse_cpu_tensors():
+    x = torch.zeros((3, 2), dtype=torch.float32)
+    v = torch.ones(1, dtype=torch.float32)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tf.stationary_gram_matvec_cuda(x, x, x, v)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tf.gram_moments_cuda(x, x, x, v)
+    assert tf._lib_handle is None
+
+
+def test_unknown_accum_raises():
+    X = torch.rand(10, 2)
+    with pytest.raises(ValueError, match="accum"):
+        tf.stationary_gram_matvec_fused(X, torch.rand(10, 2), 1.0, 1.0, accum="bf16")
+    with pytest.raises(ValueError, match="accum"):
+        tf.stationary_gram_matvec_fused_diff(X, torch.rand(10, 2), 1.0, 1.0, torch.ones(10),
+                                             accum="highest")
+    m = GPRegression(X.numpy(), X[:, :1].numpy(), RBF(2, device="cpu"), device="cpu",
+                     inference_method=IterativeGaussianInference(max_cg=2, n_probes=2,
+                                                                 fused=True, fused_accum="tf32"))
+    with pytest.raises(ValueError, match="accum"):
+        m.log_likelihood()
