@@ -34,7 +34,29 @@ Phases, each printing one JSON line:
                 checked against its plain twin, NLML+gradient and predict
                 times of both models, the materialized matvec's matmul;
  10. iterative_profile -- device time by kernel over one NLML+gradient of
-                each model.
+                each model;
+ 11. kernels_chol -- the batched block Cholesky B2/B3 against its plain twin
+                at every batch the main path gives it (C = 2, 4, 8, 16)
+                and at 1, 32 and 64, float32 and float64; B4 (chol + inverse)
+                likewise; NaN isolation of a non-SPD element in both; the
+                blocked routines (left-looking, right-looking version 1
+                and 2, recursive with B4 leaves) at (8|16, 1000, 1000) float32
+                against a float64 factorization, launches counted;
+ 12. hmc      -- the batched main path at bench.py's HMC stage (N=1000, D=2,
+                RBF, noise 0.1, float32, stepsize 0.02, 10 leapfrog steps,
+                40 samples) for 1, 2, 4, 8 and 16 chains: one warm
+                sample(), then a timed one with the launch counters read
+                around it (8 B2/B3 launches per evaluation for C >= 2, 0 at
+                C = 1), samples/s and acceptance; the batched logp and
+                gradient at the 16 chains' final states against the
+                unbatched path and a float64 twin; one HMC_shortcut run;
+ 13. restarts -- optimize_restarts(parallel=True) with 16 restarts on the
+                same model, against L-BFGS-B;
+ 14. chol_times -- CUDA-event times of B2/B3 and B4 at (8|16, 128, 128) and
+                of the left-looking factorization at (8, 1000, 1000), each
+                beside its plain twin, its bound and one PyTorch call;
+ 15. hmc_profile -- device time by kernel over one batched logp+gradient at
+                8 chains.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -439,16 +461,27 @@ def iterative_model(X, Y, dtype, fused):
                         dtype=dtype)
 
 
-def counters(rg, fm):
+def counters():
+    """Every kernel's launch count (each wrapper adds one where it launches)."""
+    from gpy_tpu_torch.ops import block_chol as bc
+    from gpy_tpu_torch.ops import gram_matvec_fused as fm
+    from gpy_tpu_torch.ops import rbf_gram as rg
+
     return {"rbf_gram": rg.launches, "gram_matvec_fused": fm.matvec_launches,
-            "gram_moments": fm.moments_launches}
+            "gram_moments": fm.moments_launches, "block_chol": bc.launches,
+            "block_chol_inv": bc.inv_launches}
 
 
-def reset_counters(rg, fm):
+def reset_counters():
+    from gpy_tpu_torch.ops import block_chol as bc
+    from gpy_tpu_torch.ops import gram_matvec_fused as fm
+    from gpy_tpu_torch.ops import rbf_gram as rg
+
     rg.launches = fm.matvec_launches = fm.moments_launches = 0
+    bc.launches = bc.inv_launches = 0
 
 
-def drive_iterative(m, Xs, rg, fm):
+def drive_iterative(m, Xs):
     """The user's steps on one model, the launch counters read around each.
 
     The predictive RMSE is checked at the starting parameters (the first
@@ -465,18 +498,18 @@ def drive_iterative(m, Xs, rg, fm):
     truth = np.sin(Xs[:, :1])
     t0 = time.perf_counter()
     ll0 = m.log_likelihood().item()
-    marks.append(counters(rg, fm))
+    marks.append(counters())
     x0 = m.optimizer_array
     f0, g0 = m._objective_and_grad(x0)
-    marks.append(counters(rg, fm))
+    marks.append(counters())
     mu0, _ = m.predict(Xs)
-    marks.append(counters(rg, fm))
+    marks.append(counters())
     res = m.optimize(max_iters=2)
-    marks.append(counters(rg, fm))
+    marks.append(counters())
     mu, var = m.predict(Xs)
-    marks.append(counters(rg, fm))
+    marks.append(counters())
     q_lo, q_hi = m.predict_quantiles(Xs)
-    marks.append(counters(rg, fm))
+    marks.append(counters())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per_step = {}
@@ -532,7 +565,7 @@ def exact_nlml_f64(X, Y, params):
     return nlml
 
 
-def run_iterative(rg, fm):
+def run_iterative():
     """The iterative main path, each model driven with the counters set to 0
     just before it and read just after."""
     import numpy as np
@@ -543,8 +576,8 @@ def run_iterative(rg, fm):
                    "options": ITER_OPTS, "dtype": "float32"}, {}
     for tag, fused in (("fused", True), ("auto", False)):
         m = iterative_model(X, Y, torch.float32, fused)
-        reset_counters(rg, fm)
-        r = drive_iterative(m, Xs, rg, fm)
+        reset_counters()
+        r = drive_iterative(m, Xs)
         models[tag] = (m, r)
         rec[tag] = {k: v for k, v in r.items() if k not in ("x0", "g0")}
         torch.cuda.empty_cache()
@@ -660,7 +693,7 @@ def time_moments(fm, R=9):
             "library_ms": None}
 
 
-def iterative_times(models, Xs, rg, fm, smi):
+def iterative_times(models, Xs, fm, smi):
     import torch
 
     rec = {"phase": "iterative_times", "nvidia_smi": smi,
@@ -671,11 +704,11 @@ def iterative_times(models, Xs, rg, fm, smi):
     torch.cuda.empty_cache()
     for tag, (m, _) in models.items():
         x = m.optimizer_array
-        reset_counters(rg, fm)
+        reset_counters()
         rec[f"objective_and_grad_ms_{tag}"] = host_ms(lambda: m._objective_and_grad(x),
                                                       reps=3, warmup=1)
         rec[f"launches_per_objective_and_grad_{tag}"] = {
-            k: c / 4 for k, c in counters(rg, fm).items()}
+            k: c / 4 for k, c in counters().items()}
         m.predict(Xs)  # the posterior at these parameters is cached from here on
         rec[f"predict_ms_n{ITER_PRED}_posterior_cached_{tag}"] = host_ms(
             lambda: m.predict(Xs), reps=2, warmup=0)
@@ -695,6 +728,430 @@ def iterative_times(models, Xs, rg, fm, smi):
     return rec
 
 
+# --- the batched exact GP: block Cholesky (B2/B3, B4), HMC, restarts --------
+
+# bench.py:847-889: HMC over the 3 hyperparameters of an exact GP at N=1000
+HMC_N, HMC_D, HMC_SAMPLES, HMC_LEAPFROG, HMC_STEP = 1000, 2, 40, 10, 2e-2
+HMC_CHAINS = (1, 2, 4, 8, 16)
+HMC_RESTARTS = 16
+CHOL_BLOCK = 128
+
+
+def chol_batches(bc):
+    """Every batch C the main path hands B2/B3 (the chains of 2 and more,
+    the parallel restarts), with 1, 32 and the batched rule's gate
+    `bc.MAX_BATCH` (64): the kernels are checked at each of them."""
+    return sorted({1, 32, HMC_RESTARTS, bc.MAX_BATCH} | {C for C in HMC_CHAINS if C >= 2})
+
+
+def block_columns():
+    """B2/B3 launches per batched factorization: n padded to 128s."""
+    return -(-HMC_N // CHOL_BLOCK)
+# the kernels against their plain twins on the card, max abs error (inputs
+# G G' + 128 I, entries ~10): ~10x the first readings on an H100 (B2 f32
+# 1.9e-6, f64 3.6e-15; B4's L^-1 f32 1.5e-8, f64 2.8e-17; |L^-1 L - I| f32
+# 6.9e-8, f64 1.8e-16)
+CHOL_TOL = {"float32": 2e-5, "float64": 4e-14}
+CHOL_INV_TOL = {"float32": 1.5e-7, "float64": 3e-16}
+CHOL_RESID_TOL = {"float32": 1e-6, "float64": 2e-15}
+
+
+def chol_inputs(C, n, dtype, seed, rank=40):
+    """C SPD (n, n) matrices G G' + n I, made on the CPU from a seed."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G = torch.randn(C, n, rank, generator=g, dtype=torch.float64)
+    return (G @ G.transpose(-1, -2) + n * torch.eye(n, dtype=torch.float64)).to(
+        dtype=dtype, device="cuda")
+
+
+def check_block_chol(bc, C, dtype):
+    import torch
+
+    name = str(dtype).replace("torch.", "")
+    A = chol_inputs(C, CHOL_BLOCK, dtype, seed=C)
+    L = bc.block_chol_cuda(A)
+    Lp = bc.block_chol_plain(A)
+    torch.cuda.synchronize()
+    err = float((L - Lp).abs().max())
+    check(torch.isfinite(L).all(), f"block_chol C={C} {name}: non-finite factor of SPD input")
+    check(err <= CHOL_TOL[name], f"block_chol C={C} {name}: max err {err} > {CHOL_TOL[name]}")
+    check(torch.equal(L, torch.tril(L)), f"block_chol C={C} {name}: entries above the diagonal")
+    check(torch.equal(L, bc.block_chol_cuda(A)), f"block_chol C={C} {name}: two launches differ")
+    return {"C": C, "dtype": name, "max_abs_err": err, "tol": CHOL_TOL[name]}
+
+
+def check_block_chol_inv(bc, C, dtype):
+    import torch
+
+    name = str(dtype).replace("torch.", "")
+    A = chol_inputs(C, CHOL_BLOCK, dtype, seed=99 + C)
+    L, Li = bc.block_chol_inv_cuda(A)
+    Lp, Lip = bc.block_chol_inv_plain(A)
+    torch.cuda.synchronize()
+    err_l = float((L - Lp).abs().max())
+    err_li = float((Li - Lip).abs().max())
+    eye = torch.eye(CHOL_BLOCK, dtype=torch.float64, device="cuda")
+    resid = float((Li.double() @ L.double() - eye).abs().max())
+    check(err_l <= CHOL_TOL[name], f"block_chol_inv C={C} {name}: L err {err_l}")
+    check(err_li <= CHOL_INV_TOL[name], f"block_chol_inv C={C} {name}: L^-1 err {err_li}")
+    check(resid <= CHOL_RESID_TOL[name], f"block_chol_inv C={C} {name}: |L^-1 L - I| {resid}")
+    return {"C": C, "dtype": name, "max_abs_err": err_l, "inv_max_abs_err": err_li,
+            "inv_resid": resid, "tol": [CHOL_TOL[name], CHOL_INV_TOL[name], CHOL_RESID_TOL[name]]}
+
+
+def check_nan_isolation(bc, dtype):
+    """One non-SPD element of 8: NaN in its factor, the other seven
+    bit-equal to a clean run, for both kernels."""
+    import torch
+
+    name = str(dtype).replace("torch.", "")
+    A = chol_inputs(8, CHOL_BLOCK, dtype, seed=77)
+    bad = A.clone()
+    bad[3, 10, 10] = -5.0
+    for label, fn in (("block_chol", lambda X: (bc.block_chol_cuda(X),)),
+                      ("block_chol_inv", bc.block_chol_inv_cuda)):
+        for clean, dirty in zip(fn(A), fn(bad)):
+            torch.cuda.synchronize()
+            nan = torch.isnan(dirty).flatten(1).any(1).tolist()
+            check(nan == [c == 3 for c in range(8)], f"{label} {name}: NaN rows {nan}")
+            for c in (0, 1, 2, 4, 5, 6, 7):
+                check(torch.equal(clean[c], dirty[c]), f"{label} {name}: element {c} changed")
+    return {"dtype": name, "bad_element": 3, "nan_only_there": True, "others_bit_equal": True}
+
+
+def hmc_data(seed=0):
+    """bench.py:851-854: X ~ U[0,4)^2, Y = sin(x_1) + 0.1 eps, float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.random((HMC_N, HMC_D)).astype(np.float32) * 4.0
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((HMC_N, 1))).astype(np.float32)
+    return X, Y
+
+
+def hmc_model(X, Y, dtype):
+    """bench.py:855: GPRegression(X, Y, noise_var=0.1), the default RBF."""
+    from gpy_tpu_torch.models import GPRegression
+
+    return GPRegression(X, Y, noise_var=0.1, device="cuda", dtype=dtype)
+
+
+def batch_grams(m, C, seed):
+    """C noisy Grams of the HMC model at parameters jittered around its
+    point (what one batched evaluation factors), built on the card."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x0 = m.get_flat_raw()
+    flats = x0[None] + 0.2 * torch.randn((C, x0.numel()), generator=g, dtype=x0.dtype).to("cuda")
+    with torch.no_grad():
+        Ks = []
+        for row in flats:
+            with m.bind_flat_raw(row):
+                Ks.append(m.inference_method.noisy_gram(m.kern, m.X, m.likelihood))
+        return torch.stack(Ks)
+
+
+# the blocked routines on the HMC model's Grams at (C, 1000, 1000) float32
+# against float64: ~10x the first readings on an H100 (factor 1.32e-5
+# relative to max|L|, |L^-1 L - I| 2.7e-6)
+BLOCKED_REL_TOL = 1.5e-4
+BLOCKED_RESID_TOL = 3e-5
+
+
+def check_blocked(bc, m):
+    """The three blocked routines on the HMC model's Grams at (8, 1000, 1000)
+    and (16, 1000, 1000) float32 against a float64 torch.linalg
+    factorization; the B4 path (batched_chol_inv(version=1)) read with its
+    counters."""
+    import torch
+
+    out, b4_launches = [], 0
+    for C in (8, 16):
+        K = batch_grams(m, C, seed=C)
+        L64 = torch.linalg.cholesky(K.double())
+        eye = torch.eye(HMC_N, dtype=torch.float64, device="cuda")
+        for name, fn in (("ll", bc.batched_chol_inv_ll),
+                         ("v1", lambda k: bc.batched_chol_inv(k, version=1)),
+                         ("v2", lambda k: bc.batched_chol_inv(k, version=2))):
+            reset_counters()
+            L, Li = fn(K)
+            torch.cuda.synchronize()
+            launched = counters()
+            if name == "v1":
+                b4_launches += launched["block_chol_inv"]
+            rel = float((L.double() - L64).abs().max() / L64.abs().max())
+            resid = float((Li.double() @ L.double() - eye).abs().max())
+            check(torch.isfinite(L).all() and torch.isfinite(Li).all(),
+                  f"blocked {name} C={C}: non-finite factor")
+            kernel = "block_chol_inv" if name == "v1" else "block_chol"
+            check(launched[kernel] == block_columns(),
+                  f"blocked {name} C={C}: {launched[kernel]} {kernel} launches")
+            check(rel <= BLOCKED_REL_TOL and resid <= BLOCKED_RESID_TOL,
+                  f"blocked {name} C={C}: rel err {rel}, |L^-1 L - I| {resid}")
+            out.append({"routine": name, "C": C, "rel_err_vs_f64": rel, "inv_resid": resid,
+                        "launches": launched})
+    return out, b4_launches
+
+
+def run_kernels_chol(bc, m):
+    import torch
+
+    rec = {"phase": "kernels_chol",
+           "block_chol": [check_block_chol(bc, C, dt) for dt in (torch.float32, torch.float64)
+                          for C in chol_batches(bc)],
+           "block_chol_inv": [check_block_chol_inv(bc, C, dt)
+                              for dt in (torch.float32, torch.float64) for C in (2, 8, 16)],
+           "nan_isolation": [check_nan_isolation(bc, dt) for dt in (torch.float32, torch.float64)]}
+    rec["blocked"], b4_path_launches = check_blocked(bc, m)
+    # rec_block_chol_inv: B4 leaves of an identity-padded (8, 1024, 1024) batch
+    K = batch_grams(m, 8, seed=3)
+    Kp = torch.zeros((8, 1024, 1024), dtype=K.dtype, device="cuda")
+    Kp[:, :HMC_N, :HMC_N] = K
+    Kp[:, HMC_N:, HMC_N:] = torch.eye(1024 - HMC_N, dtype=K.dtype, device="cuda")
+    reset_counters()
+    L, _ = bc.rec_block_chol_inv(Kp)
+    torch.cuda.synchronize()
+    b4_path_launches += bc.inv_launches
+    L64 = torch.linalg.cholesky(K.double())
+    rel = float((L[:, :HMC_N, :HMC_N].double() - L64).abs().max() / L64.abs().max())
+    check(bc.inv_launches == 8 and rel <= BLOCKED_REL_TOL,
+          f"rec_block_chol_inv: {bc.inv_launches} launches, rel err {rel}")
+    rec["rec_block_chol_inv"] = {"C": 8, "n": 1024, "launches": 8, "rel_err_vs_f64": rel}
+    rec["blocked_limits"] = {"rel_err_vs_f64": BLOCKED_REL_TOL, "inv_resid": BLOCKED_RESID_TOL}
+    worst = {k: max(r["max_abs_err"] for r in rec[k] if r["dtype"] == "float32")
+             for k in ("block_chol", "block_chol_inv")}
+    return rec, worst, b4_path_launches
+
+
+def raw_from_constrained(m, vals):
+    """Raw vectors (..., P) from constrained samples, by each free entry's
+    inverse transform."""
+    import torch
+
+    cols, i = [], 0
+    for _, mod, n in m._free_entries():
+        sz = mod._parameters[n].numel()
+        tr = mod._specs[n].transform
+        block = torch.as_tensor(vals[..., i:i + sz], dtype=torch.float64)
+        cols.append(tr.inverse(block) if tr is not None else block)
+        i += sz
+    return torch.cat(cols, -1)
+
+
+# the batched logp and gradient at the 16 chains' final states against the
+# unbatched path (B2's blocked factorization against cuSOLVER), relative to
+# max|.|: in float64, where the two must agree to rounding, and in float32,
+# where both carry the float32 error of a Gram whose condition number is
+# ~1e5 at the posterior's noise (~0.01); the float32 batched path is also
+# held against the float64 one. ~10x the first readings on an H100 (PERF.md)
+HMC_REL_TOL = {"f64_logp_vs_unbatched": 2e-12, "f64_grad_vs_unbatched": 6e-11,
+               "f32_logp_vs_unbatched": 7e-4, "f32_grad_vs_unbatched": 2.5e-2,
+               "f32_logp_vs_f64": 1.3e-3, "f32_grad_vs_f64": 6.5e-2}
+
+
+def logp_rel_errors(hmc, h64, raw):
+    """Relative errors of the batched logp and gradient at the raw states."""
+    import torch
+    from gpy_tpu_torch.core.model import value_and_grad
+
+    def both(h, x):
+        vb, gb = value_and_grad(h._logp, x)
+        per_row = [value_and_grad(h._logp, x[c]) for c in range(x.shape[0])]
+        vu = torch.stack([r[0] for r in per_row])
+        gu = torch.stack([r[1] for r in per_row])
+        return vb.double(), gb.double(), vu.double(), gu.double()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    vb32, gb32, vu32, gu32 = both(hmc, raw.to(device="cuda", dtype=torch.float32))
+    vb64, gb64, vu64, gu64 = both(h64, raw.to("cuda"))
+    return {"f64_logp_vs_unbatched": rel(vb64, vu64), "f64_grad_vs_unbatched": rel(gb64, gu64),
+            "f32_logp_vs_unbatched": rel(vb32, vu32), "f32_grad_vs_unbatched": rel(gb32, gu32),
+            "f32_logp_vs_f64": rel(vb32, vb64), "f32_grad_vs_f64": rel(gb32, gb64),
+            "f32_unbatched_logp_vs_f64": rel(vu32, vb64),
+            "f32_unbatched_grad_vs_f64": rel(gu32, gb64)}
+
+
+def run_hmc(m, X, Y):
+    """The main path: HMC(m).sample(num_chains=C) at bench's configuration,
+    the counters set to 0 just before each timed sample() and read just
+    after."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch import mcmc
+
+    hmc = mcmc.HMC(m, stepsize=HMC_STEP, num_leapfrog=HMC_LEAPFROG)
+    evals = HMC_SAMPLES * (1 + HMC_LEAPFROG)
+    per_chain, launches = {}, {"rbf_gram": 0, "block_chol": 0, "block_chol_inv": 0}
+    finals = {}
+    for C in HMC_CHAINS:
+        hmc.sample(num_samples=HMC_SAMPLES, num_chains=C, seed=0)  # warm
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = hmc.sample(num_samples=HMC_SAMPLES, num_chains=C, seed=3)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = counters()
+        for k in launches:
+            launches[k] += c[k]
+        check(np.isfinite(s).all() and s.shape == ((HMC_SAMPLES, 3) if C == 1
+                                                   else (C, HMC_SAMPLES, 3)),
+              f"hmc C={C}: samples not finite or of the wrong shape")
+        if C == 1:
+            check(c["block_chol"] == 0, f"hmc C=1: {c['block_chol']} block_chol launches")
+            probes = 0
+        else:
+            nb = block_columns()
+            extra = c["block_chol"] - nb * evals
+            check(extra >= 0 and extra % nb == 0,
+                  f"hmc C={C}: {c['block_chol']} block_chol launches for {evals} evaluations")
+            probes = extra // nb
+        check(c["rbf_gram"] == C * evals, f"hmc C={C}: {c['rbf_gram']} rbf_gram launches")
+        check(c["block_chol_inv"] == 0, f"hmc C={C}: B4 launched on the main path")
+        per_chain[str(C)] = {"samples_per_s": HMC_SAMPLES * C / dt, "seconds": dt,
+                             "accept_rate": hmc._accept_rate, "evaluations": evals,
+                             "launches": c, "ladder_factorizations": probes}
+        finals[C] = s[-1] if C == 1 else s[:, -1]
+
+    # logp and gradient at the 16 chains' final states
+    m64 = hmc_model(X, Y, torch.float64)
+    h64 = mcmc.HMC(m64, stepsize=HMC_STEP, num_leapfrog=HMC_LEAPFROG)
+    rel = logp_rel_errors(hmc, h64, raw_from_constrained(m, finals[16]))
+
+    # HMC_shortcut at 8 chains, from the L-BFGS-B optimum (as the reference's
+    # test starts it): far from it, at the model's initial point, every
+    # trajectory's energy moves by more than the shortcut's 3 units and is
+    # cut, which is the reference's rule and leaves nothing accepted
+    mo = hmc_model(X, Y, torch.float32)
+    mo.optimize()
+    hs = mcmc.HMC_shortcut(mo, stepsize=HMC_STEP, num_leapfrog=HMC_LEAPFROG)
+    reset_counters()
+    t0 = time.perf_counter()
+    ss = hs.sample(num_samples=10, num_chains=8, seed=5)
+    short = {"C": 8, "num_samples": 10, "seconds": time.perf_counter() - t0,
+             "accept_rate": hs._accept_rate, "launches": counters()}
+    check(np.isfinite(ss).all() and ss.shape == (8, 10, 3), "hmc_shortcut: bad samples")
+    check(hs._accept_rate > 0.5, f"hmc_shortcut: acceptance {hs._accept_rate} at the optimum")
+    check(short["launches"]["block_chol"] >= block_columns() * 10 * (1 + HMC_LEAPFROG),
+          "hmc_shortcut: fewer block_chol launches than evaluations x block columns")
+    del m64, h64, mo, hs
+    torch.cuda.empty_cache()
+    rec = {"phase": "hmc", "N": HMC_N, "D": HMC_D, "dtype": "float32",
+           "num_samples": HMC_SAMPLES, "num_leapfrog": HMC_LEAPFROG, "stepsize": HMC_STEP,
+           "by_chains": per_chain, "launches": launches,
+           "final_state_rel": rel, "limits": HMC_REL_TOL, "hmc_shortcut": short}
+    emit(rec)  # before the limits below, so that a failing run still shows its readings
+    for k, tol in HMC_REL_TOL.items():
+        check(rel[k] <= tol, f"hmc: logp/gradient at the final states: {k} {rel[k]} > {tol}")
+    return hmc, rec
+
+
+def run_restarts(X, Y):
+    """optimize_restarts(parallel=True) at C = 16 on the HMC model; the kept
+    objective against the L-BFGS-B optimum + 2 (tests/test_module.py:143-157)."""
+    import torch
+
+    m = hmc_model(X, Y, torch.float32)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = m.optimize_restarts(parallel=True, num_restarts=HMC_RESTARTS, max_iters=100,
+                              step_size=0.03, seed=0, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = counters()
+    kept = float(m.objective_function().detach())
+    m2 = hmc_model(X, Y, torch.float32)
+    m2.optimize()
+    opt = float(m2.objective_function().detach())
+    evals, nb = 100 + 1, block_columns()  # the Adam steps and the end objectives
+    extra = launched["block_chol"] - nb * evals
+    check(extra >= 0 and extra % nb == 0,
+          f"restarts: {launched['block_chol']} block_chol launches for {evals} evaluations")
+    check(kept <= opt + 2.0, f"restarts: kept objective {kept} > L-BFGS-B {opt} + 2")
+    return {"phase": "restarts", "num_restarts": HMC_RESTARTS, "max_iters": 100,
+            "step_size": 0.03, "seconds": dt, "launches": launched, "evaluations": evals,
+            "ladder_factorizations": extra // nb,
+            "objectives": [r.f_opt for r in res], "kept": kept, "lbfgsb_optimum": opt}
+
+
+def chol_bound(C, n, dtype_name, outputs):
+    """Least time on the card: A read and `outputs` (n, n) results written
+    once over the memory rate, or C n^3/3 operations per output (the
+    factor's n^3/6 multiply-adds; the triangular inverse's as many, as
+    LAPACK counts potrf and trtri) over the peak rate."""
+    isz = 4 if dtype_name == "float32" else 8
+    t_bytes = isz * C * n * n * (1 + outputs) / PEAK_BYTES_S
+    t_ops = outputs * C * n ** 3 / 3 / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def chol_times(bc, m, smi):
+    import torch
+
+    rows = {"block_chol": [], "block_chol_inv": []}
+    for C in (8, 16):
+        A = chol_inputs(C, CHOL_BLOCK, torch.float32, seed=5 + C)
+        eye = torch.eye(CHOL_BLOCK, device="cuda").expand(C, -1, -1)
+        bound, by = chol_bound(C, CHOL_BLOCK, "float32", 1)
+        rows["block_chol"].append({
+            "C": C, "n": CHOL_BLOCK, "dtype": "float32",
+            "ms": cuda_ms(lambda: bc.block_chol_cuda(A), reps=50),
+            "plain_ms": cuda_ms(lambda: bc.block_chol_plain(A), reps=3, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.linalg.cholesky(A), reps=50),
+            "library": "torch.linalg.cholesky (batched)", "bound_ms": bound, "bound_by": by})
+        bound, by = chol_bound(C, CHOL_BLOCK, "float32", 2)
+        rows["block_chol_inv"].append({
+            "C": C, "n": CHOL_BLOCK, "dtype": "float32",
+            "ms": cuda_ms(lambda: bc.block_chol_inv_cuda(A), reps=50),
+            "plain_ms": cuda_ms(lambda: bc.block_chol_inv_plain(A), reps=3, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky(A), eye, upper=False), reps=50),
+            "library": "torch.linalg.cholesky + torch.linalg.solve_triangular (two calls)",
+            "bound_ms": bound, "bound_by": by})
+    K = batch_grams(m, 8, seed=21)
+    eye = torch.eye(HMC_N, device="cuda").expand(8, -1, -1)
+    bound, by = chol_bound(8, HMC_N, "float32", 2)
+    blocked = {"C": 8, "n": HMC_N, "dtype": "float32",
+              "ms": cuda_ms(lambda: bc.batched_chol_inv_ll(K), reps=20),
+              "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
+                  torch.linalg.cholesky(K), eye, upper=False), reps=20),
+              "library": "torch.linalg.cholesky + torch.linalg.solve_triangular (two calls)",
+              "bound_ms": bound, "bound_by": by}
+    return {"phase": "chol_times", "nvidia_smi": smi, **rows, "batched_chol_inv_ll": blocked}
+
+
+def profile_hmc_eval(hmc, C=8):
+    """Device time by kernel and the idle share over one batched
+    logp+gradient at C chains (one HMC leapfrog evaluation)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gpy_tpu_torch.core.model import value_and_grad
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x0 = hmc.model.get_flat_raw()
+    x = x0[None] + 0.05 * torch.randn((C, x0.numel()), generator=g, dtype=x0.dtype).to("cuda")
+    value_and_grad(hmc._logp, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        value_and_grad(hmc._logp, x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    host_eval_ms = host_ms(lambda: value_and_grad(hmc._logp, x), reps=5, warmup=1)
+    return {"phase": "hmc_profile", "what": f"one batched logp+gradient, C={C}, N={HMC_N} float32",
+            "wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": 1.0 - device_ms / wall_ms, "kernel_launches": sum(r[2] for r in rows), "eval_ms_unprofiled": host_eval_ms,
+            "top": [{"kernel": k[:90], "device_ms": ms, "count": c} for ms, k, c in rows[:15]]}
+
+
 def main() -> int:
     import torch
 
@@ -702,6 +1159,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from gpy_tpu_torch.ops import _build
+    from gpy_tpu_torch.ops import block_chol as bc
     from gpy_tpu_torch.ops import gram_matvec_fused as fm
     from gpy_tpu_torch.ops import rbf_gram as rg
 
@@ -754,13 +1212,27 @@ def main() -> int:
     emit(fused_rec)
     torch.cuda.empty_cache()
 
-    models, Xi, iter_rec = run_iterative(rg, fm)
+    models, Xi, iter_rec = run_iterative()
     emit(iter_rec)
-    itimes = iterative_times(models, Xi, rg, fm, smi)
+    itimes = iterative_times(models, Xi, fm, smi)
     emit(itimes)
     for tag, (mi, _) in models.items():
         emit(profile_objective(mi, mi.optimizer_array,
                                what=f"one objective_and_grad, iterative {tag}, N={ITER_N} float32"))
+
+    del models, mi
+    torch.cuda.empty_cache()
+
+    # the batched exact GP (bench.py's HMC stage)
+    Xh, Yh = hmc_data()
+    mh = hmc_model(Xh, Yh, torch.float32)
+    chol_rec, chol_err, b4_path_launches = run_kernels_chol(bc, mh)
+    emit(chol_rec)
+    hmc, hmc_rec = run_hmc(mh, Xh, Yh)
+    emit(run_restarts(Xh, Yh))
+    ctimes = chol_times(bc, mh, smi)
+    emit(ctimes)
+    emit(profile_hmc_eval(hmc))
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -769,7 +1241,8 @@ def main() -> int:
         "name": "rbf_gram", "route": "cuda", "source": "gpy_tpu_torch/csrc/rbf_gram.cu",
         "replaces": "gpy_tpu/ops/pallas_gram.py:55",
         "launches": slice_rec["launches"] + sum(iter_rec[t]["launches"]["rbf_gram"]
-                                                for t in ("fused", "auto")),
+                                                for t in ("fused", "auto"))
+        + hmc_rec["launches"]["rbf_gram"],
         "max_abs_err": max(c["max_abs_err"] for c in checks if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
@@ -792,6 +1265,30 @@ def main() -> int:
         "main_path_rel_tol": FUSED_BWD_TOL_50K, "ms": mom["ms"],
         "plain_ms": mom["plain_ms"], "bound_ms": mom["bound_ms"], "bound_by": mom["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "block_chol", "route": "cuda", "source": "gpy_tpu_torch/csrc/block_chol.cu",
+        "replaces": "gpy_tpu/ops/pallas_chol.py:123 (_block_kernel_v2) and :175 "
+                    "(_block_kernel_v2_multi)",
+        "launches": hmc_rec["launches"]["block_chol"], "max_abs_err": chol_err["block_chol"],
+        "shape": "(8, 128, 128) float32", "ms": ctimes["block_chol"][0]["ms"],
+        "plain_ms": ctimes["block_chol"][0]["plain_ms"],
+        "bound_ms": ctimes["block_chol"][0]["bound_ms"],
+        "bound_by": ctimes["block_chol"][0]["bound_by"],
+        "library_ms": ctimes["block_chol"][0]["library_ms"],
+        "library": ctimes["block_chol"][0]["library"],
+    }, {
+        "name": "block_chol_inv", "route": "cuda", "source": "gpy_tpu_torch/csrc/block_chol.cu",
+        "replaces": "gpy_tpu/ops/pallas_chol.py:64 (_block_kernel)",
+        "launches": b4_path_launches,
+        "launches_path": "batched_chol_inv(version=1) and rec_block_chol_inv in kernels_chol; "
+                         "0 on the HMC path",
+        "max_abs_err": chol_err["block_chol_inv"],
+        "shape": "(8, 128, 128) float32", "ms": ctimes["block_chol_inv"][0]["ms"],
+        "plain_ms": ctimes["block_chol_inv"][0]["plain_ms"],
+        "bound_ms": ctimes["block_chol_inv"][0]["bound_ms"],
+        "bound_by": ctimes["block_chol_inv"][0]["bound_by"],
+        "library_ms": ctimes["block_chol_inv"][0]["library_ms"],
+        "library": ctimes["block_chol_inv"][0]["library"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,16 @@
 
 The public surface mirrors gpy_tpu (and GPy): gpy_tpu_torch.models,
 gpy_tpu_torch.kern, gpy_tpu_torch.likelihoods, gpy_tpu_torch.inference,
-gpy_tpu_torch.priors. Models and kernels run on "cuda" unless the caller
-passes device="cpu". Kernels written for the card live in csrc/ and build
-with nvcc at first use; importing the package needs no compiler.
+gpy_tpu_torch.mcmc, gpy_tpu_torch.priors. Models and kernels run on "cuda"
+unless the caller passes device="cpu". Kernels written for the card live
+in csrc/ and build with nvcc at first use; importing the package needs no
+compiler.
 """
 from . import config  # noqa: F401  (matmul precision policy)
 from . import inference
 from . import kern
 from . import likelihoods
+from . import mcmc
 from . import models
 from . import util
 from .core import priors
@@ -19,5 +21,5 @@ from .core.module import Module, Param
 
 __version__ = "0.1.0"
 
-__all__ = ["kern", "likelihoods", "inference", "models", "util", "priors",
+__all__ = ["kern", "likelihoods", "inference", "mcmc", "models", "util", "priors",
            "Model", "Module", "Param", "GP"]

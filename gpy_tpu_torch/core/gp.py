@@ -85,6 +85,22 @@ class GP(Model):
         return self.inference_method.marginal_likelihood(
             self.kern, self.X, self.likelihood, self.Y_normalized, None, self.Y_metadata)
 
+    def _batched_objective(self, flats: torch.Tensor) -> torch.Tensor:
+        """(C,) objectives at the rows of `flats` (Model._batched_objective).
+
+        Each row's noisy Gram is built under its binding (one Gram kernel
+        launch per row on the card), the C Grams are stacked and go through
+        the inference's batched form once: one batched factorization per
+        evaluation. Inference without a batched form raises."""
+        inf = self.inference_method
+        Kys, log_priors = [], []
+        for row in flats:
+            with self.bind_flat_raw(row):
+                Kys.append(inf.noisy_gram(self.kern, self.X, self.likelihood, self.Y_metadata))
+                log_priors.append(self.log_prior())
+        ll = inf.batched_log_marginal(torch.stack(Kys), self.Y_normalized)
+        return -ll - torch.stack(log_priors)
+
     # --- posterior (cached against parameter values) ----------------------
     def _param_fingerprint(self):
         return (self._data_version,

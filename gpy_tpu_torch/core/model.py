@@ -5,6 +5,14 @@ the flat raw vector is written into the parameters, the loss is computed,
 and torch.autograd returns the gradient of the free parameters in flat
 order. Each evaluation syncs with the host once for the value and once for
 the gradient. scipy drives the host-side loop, as in GPy.
+
+The reference's `jax.vmap(jax.value_and_grad(_flat_objective))` over C raw
+vectors is `_batched_objective_and_grad`: each row is bound to the
+parameters in turn (Module.bind_flat_raw) and the model's batched form
+evaluates all C objectives with one batched factorization. It carries
+`optimize_restarts(parallel=True)` and the HMC chains (mcmc). torch.func
+.vmap cannot run it: the jitter ladder branches on the host and the kernels
+launch through ctypes.
 """
 from __future__ import annotations
 
@@ -16,12 +24,31 @@ import torch
 
 from .module import Module
 
-__all__ = ["Model", "OptimizationResult"]
+__all__ = ["Model", "OptimizationResult", "value_and_grad"]
 
 _SCIPY_METHODS = {"lbfgsb": "L-BFGS-B", "bfgs": "BFGS", "tnc": "TNC",
                   "lbfgs": "L-BFGS-B", "simplex": "Nelder-Mead",
                   "neldermead": "Nelder-Mead"}
-_DEVICE_LOOPS = ("lbfgs_device", "adam", "adagrad", "rmsprop", "adadelta", "rprop")
+_OPTAX = ("adam", "adagrad", "rmsprop", "adadelta", "rprop")
+_DEVICE_LOOPS = ("lbfgs_device",) + _OPTAX
+
+
+def value_and_grad(fn, x: torch.Tensor):
+    """(fn(x), d sum(fn(x)) / dx) as detached tensors, x of shape (P,) or
+    (C, P). Where row c of fn(x) depends on row c of x only (the batched
+    objective, the samplers' logp), the gradient of the sum is every row's
+    own gradient."""
+    x = x.detach().requires_grad_(True)
+    v = fn(x)
+    return v.detach(), torch.autograd.grad(v.sum(), x)[0]
+
+
+def _adam(x: torch.Tensor, step_size: float) -> torch.optim.Adam:
+    """optax.adam(step_size) of the reference: b1 0.9, b2 0.999, eps 1e-8
+    outside the square root, bias-corrected. torch.optim.Adam computes the
+    same update, -lr m_hat / (sqrt(v_hat) + eps), elementwise, so on a
+    (R, P) leaf each row is an independent Adam run."""
+    return torch.optim.Adam([x], lr=step_size, betas=(0.9, 0.999), eps=1e-8)
 
 
 class OptimizationResult:
@@ -65,6 +92,26 @@ class Model(Module):
             for p, gp in zip(params, grads)])
         return float(obj.item()), g.cpu().numpy().astype(np.float64)
 
+    # --- objective at raw vectors, unbatched and batched ------------------
+    def _flat_objective(self, flat: torch.Tensor) -> torch.Tensor:
+        """The objective at the raw vector `flat`, differentiable with
+        respect to it; the model's parameters are left as they were."""
+        with self.bind_flat_raw(flat):
+            return self.objective_function()
+
+    def _batched_objective(self, flats: torch.Tensor) -> torch.Tensor:
+        """(C,) objectives at the rows of the (C, P) raw tensor `flats`, row
+        c differentiable with respect to row c only."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no batched objective yet (ROADMAP A10)")
+
+    def _batched_objective_and_grad(self, flats: torch.Tensor):
+        """((C,) objectives, (C, P) gradient) at the rows of `flats`: the
+        reference's vmap(value_and_grad(_flat_objective)) (core/model.py:
+        61-63, 425-435). The C objectives are summed and one
+        torch.autograd.grad returns every row's gradient."""
+        return value_and_grad(self._batched_objective, flats)
+
     # --- optimization -----------------------------------------------------
     def optimize(
         self,
@@ -73,21 +120,40 @@ class Model(Module):
         messages: bool = False,
         gtol: float = 1e-8,
         ftol: float = 2.2e-14,
+        step_size: float = 1e-2,
         **kwargs,
     ):
         """Maximize the (penalized) marginal likelihood.
 
         optimizer: 'lbfgsb' | 'bfgs' | 'tnc' | 'simplex' (Nelder-Mead) |
-        'scg' (Moller scaled conjugate gradients). The on-device loops of
-        gpy_tpu ('lbfgs_device' and the optax optimizers) are not ported yet.
+        'scg' (Moller scaled conjugate gradients) | 'adam' (torch.optim.Adam
+        at `step_size`, the reference's optax loop). 'lbfgs_device' and the
+        other optax optimizers are not ported yet.
         """
+        if optimizer == "adam":
+            return self._optimize_adam(max_iters, step_size, messages)
         if optimizer in _DEVICE_LOOPS:
             raise NotImplementedError(
                 f"optimizer {optimizer!r} is not ported yet (ROADMAP A2: the "
-                "on-device loops become torch.optim); use 'lbfgsb' or 'scg'")
+                "on-device loops become torch.optim); use 'adam', 'lbfgsb' or 'scg'")
         if optimizer == "scg":
             return self._optimize_scg(max_iters, messages, gtol, ftol)
         return self._optimize_scipy(optimizer, max_iters, messages, gtol, ftol)
+
+    def _optimize_adam(self, max_iters, step_size, messages):
+        """gpy_tpu/core/model.py:311-355: max_iters Adam steps; f_opt is the
+        objective at the last step's start, as the reference returns it."""
+        x = self.get_flat_raw().clone().requires_grad_(True)
+        opt = _adam(x, step_size)
+        v = torch.tensor(float("inf"))
+        for it in range(max_iters):
+            v, x.grad = value_and_grad(self._flat_objective, x)
+            opt.step()
+            if messages and (it + 1) % 100 == 0:
+                print(f"  iter {it + 1:5d}  obj {float(v):.6f}")
+        self.set_flat_raw(x.detach())
+        return OptimizationResult(x.detach().cpu().numpy(), float(v), "adam finished",
+                                  max_iters, True)
 
     def _optimize_scipy(self, optimizer, max_iters, messages, gtol, ftol):
         import scipy.optimize
@@ -197,10 +263,76 @@ class Model(Module):
             print(f"SCG finished: f={fnow:.6f} after {it} iters ({status})")
         return OptimizationResult(x, float(fnow), status, it, status != "maxiter reached")
 
-    def optimize_restarts(self, *args, **kwargs):
-        raise NotImplementedError(
-            "optimize_restarts is not ported yet (ROADMAP A10: batched "
-            "factorization and parallel restarts)")
+    def optimize_restarts(self, num_restarts=10, robust=False, verbose=True, parallel=False,
+                          seed=None, mesh=None, **kwargs):
+        """GPy/paramz optimize_restarts: keep the best of several random
+        inits (gpy_tpu/core/model.py:357-395). Restart i > 0 starts from
+        `randomize(rng)`, rng = np.random.default_rng(seed), drawing in the
+        reference's order. parallel=True runs every restart at once through
+        the batched objective (`_optimize_restarts_parallel`)."""
+        if mesh is not None:
+            raise NotImplementedError("mesh-sharded restarts are not ported yet (ROADMAP A16)")
+        rng = np.random.default_rng(seed)
+        initial = self.get_flat_raw()
+        if parallel:
+            return self._optimize_restarts_parallel(num_restarts, rng, initial, verbose, **kwargs)
+        best_obj, best_x = np.inf, None
+        results = []
+        for i in range(num_restarts):
+            try:
+                if i > 0:
+                    self.randomize(rng)
+                res = self.optimize(**kwargs)
+                results.append(res)
+                if res.f_opt < best_obj:
+                    best_obj, best_x = res.f_opt, self.get_flat_raw()
+                if verbose:
+                    print(f"Optimization restart {i+1}/{num_restarts}, f = {res.f_opt}")
+            except Exception as e:
+                if not robust:
+                    raise
+                if verbose:
+                    print(f"Warning - optimization restart {i+1}/{num_restarts} failed: {e}")
+        self.set_flat_raw(initial if best_x is None else best_x)
+        return results
+
+    def _optimize_restarts_parallel(self, num_restarts, rng, initial, verbose,
+                                    optimizer="adam", max_iters=1000, step_size=1e-2, **kwargs):
+        """gpy_tpu/core/model.py:397-446: R inits (the current point and R-1
+        draws), max_iters Adam steps on the (R, P) tensor through the batched
+        objective (one batched factorization per step), then the R
+        objectives at the end points; the best finite one is kept."""
+        if optimizer not in _OPTAX:
+            raise ValueError("parallel restarts run as one batched loop and need an optax "
+                             f"optimizer, not {optimizer!r}")
+        if optimizer != "adam":
+            raise NotImplementedError(
+                f"optimizer {optimizer!r} is not ported yet (ROADMAP A2); use 'adam'")
+        inits = [initial]
+        try:
+            for _ in range(num_restarts - 1):
+                self.randomize(rng)
+                inits.append(self.get_flat_raw())
+        finally:
+            self.set_flat_raw(initial)
+        xs = torch.stack(inits).requires_grad_(True)
+        opt = _adam(xs, step_size)
+        for _ in range(max_iters):
+            _, xs.grad = self._batched_objective_and_grad(xs)
+            opt.step()
+        with torch.no_grad():
+            vf = self._batched_objective(xs).cpu().numpy().astype(np.float64)
+        xs = xs.detach()
+        vf_safe = np.where(np.isfinite(vf), vf, np.inf)
+        best = int(np.argmin(vf_safe))
+        if np.isfinite(vf_safe[best]):
+            self.set_flat_raw(xs[best])
+        if verbose:
+            print(f"parallel restarts: objectives {np.round(vf, 3)} -> kept #{best}")
+        x_np = xs.cpu().numpy()
+        return [OptimizationResult(x_np[i], float(vf[i]), f"{optimizer} batched restart",
+                                   max_iters, bool(np.isfinite(vf[i])))
+                for i in range(num_restarts)]
 
     # --- gradient checking (GPy m.checkgrad) ------------------------------
     def checkgrad(self, verbose=False, step=1e-6, tolerance=1e-3) -> bool:

@@ -28,6 +28,7 @@ member on each flat round trip.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Iterator, Optional, Tuple
 
@@ -449,6 +450,29 @@ class Module(nn.Module):
             return
         flat = _as_tensor(flat, p0.dtype, p0.device)
         self.set_raw_dict(self.flat_to_raw_dict(flat))
+
+    @contextlib.contextmanager
+    def bind_flat_raw(self, flat: torch.Tensor):
+        """Evaluate the model at the raw vector `flat` (a (P,) tensor, e.g. a
+        row of a (C, P) tensor that requires grad): inside the block every
+        free parameter is its slice of `flat`, so what is computed there is
+        differentiable with respect to `flat`. Counterpart of gpy_tpu's
+        functional `with_flat_raw` (core/module.py:564). Tied followers get
+        the leader's slice (flat_to_raw_dict). Module.__setattr__ would copy
+        a value into the Parameter, so the slices go straight into
+        `_parameters`; the Parameters are put back on exit, exception or
+        not."""
+        raw = self.flat_to_raw_dict(flat)
+        saved = []
+        try:
+            for path, mod, n in self.named_params():
+                if path in raw:
+                    saved.append((mod, n, mod._parameters[n]))
+                    mod._parameters[n] = raw[path]
+            yield self
+        finally:
+            for mod, n, p in reversed(saved):
+                mod._parameters[n] = p
 
     @property
     def param_array(self) -> np.ndarray:

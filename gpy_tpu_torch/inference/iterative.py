@@ -169,7 +169,11 @@ class IterativeGaussianInference(LatentFunctionInference):
     fused_accum: "f32x3" | "exact" | "fast" (all float32 FFMA on the card).
     fast_grad: "auto" computes the RBF gradient surrogate from the stored
       Gram (one extra sweep) when eligible; False always rebuilds.
+
+    It has no batched form: the reference reaches it unbatched only.
     """
+
+    batched_roadmap_item = "A13"
 
     def __init__(self, max_cg=64, n_probes=8, block=2048, seed=0, materialize="auto",
                  materialize_max_n=50_000, precond_rank=0, gram_dtype=None, fused=False,

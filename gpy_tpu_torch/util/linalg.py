@@ -1,16 +1,23 @@
-"""Dense PSD linear algebra on torch.linalg.
+"""Dense PSD linear algebra on torch.linalg, and the batched rules.
 
-Counterpart of gpy_tpu/util/linalg.py:99-128, 272-461 (GPy/util/linalg.py:
+Counterpart of gpy_tpu/util/linalg.py:99-264, 272-461 (GPy/util/linalg.py:
 jitchol:56, dtrtrs:95, dpotrs:116, dpotri:127, pdinv:193). Single-matrix
 factorizations go to torch.linalg, as gpy_tpu leaves them to XLA outside
-any Pallas kernel. The TPU-only pieces of the reference (the f64 LU casts,
-custom_vmap, the blocked XLA recursion) have no counterpart here.
+any Pallas kernel. A batch of matrices (leading dimensions: HMC chains,
+parallel restarts) takes the reference's batched rules (:140-226): the
+blocked Cholesky routines of ops/block_chol.py, whose kernel is B2/B3, and
+a jitter ladder that escalates per batch element. The reference reaches them
+through custom_vmap under jax.vmap; here the caller stacks the batch. The
+TPU-only pieces (the f64 LU casts, the single-matrix blocked XLA
+recursion) have no counterpart.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config import config
+from ..ops.block_chol import MAX_BATCH, batched_chol_inv_ll, block_chol_available
+from ..ops.blocked_linalg import BATCHED_REC_MIN_N, chol_inv_native, rec_chol_inv
 
 __all__ = [
     "jitchol",
@@ -37,54 +44,104 @@ def _eye(A: torch.Tensor) -> torch.Tensor:
 
 
 def _chol(A: torch.Tensor):
-    """(L, ok): lower Cholesky factor and whether it succeeded, as one host
-    boolean. The probe and the result are the same factorization
+    """(L, ok): lower Cholesky factor and, per matrix of the batch, whether
+    it succeeded. The probe and the result are the same factorization
     (cholesky_ex), so the ladder never accepts a jitter the final call
     refuses (gpy_tpu's round-5 fault, util/linalg.py:326-333). A NaN input
     makes LAPACK/cuSOLVER report a non-positive pivot; the isfinite term
     covers an infinite one."""
     L, info = torch.linalg.cholesky_ex(A)
-    ok = (info == 0).all() & torch.isfinite(L.detach()).all()
-    return L, bool(ok)
+    return L, (info == 0) & torch.isfinite(L.detach()).all(dim=(-2, -1))
 
 
-def _find_jitter(A_sg: torch.Tensor, jitter0: torch.Tensor, maxtries: int) -> torch.Tensor:
-    """Smallest jitter of the escalation ladder making chol(A + jI) succeed:
-    gpy_tpu/util/linalg.py:320-347. Probes at jitter0 * 10**k for
-    k = 0..maxtries; when none succeeds the level is escalated once more,
-    as the reference's loop leaves it."""
-    jit = jitter0
+def _diag_mean(A: torch.Tensor) -> torch.Tensor:
+    return torch.abs(torch.mean(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1))
+
+
+def _find_jitter(A_sg: torch.Tensor, ok0: torch.Tensor, probe, maxtries: int) -> torch.Tensor:
+    """Per matrix of the batch, the smallest jitter of the escalation ladder
+    making `probe(A + jI)` succeed, 0 where ok0 already holds:
+    gpy_tpu/util/linalg.py:320-347 for one matrix, :193-216 for a batch.
+    Every rung probes the whole batch at once with the factorization that
+    gives the result (`probe` returns the per-matrix success); a matrix
+    still failing escalates ten-fold. The rungs are jitter0 * 10**k for
+    k = 0..maxtries, jitter0 = config.jitter * |mean diag|; where none
+    succeeds the level is escalated once more, as the reference's loop
+    leaves it."""
+    jit = _diag_mean(A_sg) * config.jitter
+    ok = ok0
     eye = _eye(A_sg)
-    for _ in range(maxtries + 1):
-        if _chol(A_sg + jit * eye)[1]:
-            return jit
-        jit = jit * 10.0
-    return jit
+    tries = 0
+    while tries <= maxtries and not bool(ok.all()):
+        ok_new = probe(A_sg + jit[..., None, None] * eye)
+        jit = torch.where(ok | ok_new, jit, jit * 10.0)
+        ok = ok | ok_new
+        tries += 1
+    return torch.where(ok0, torch.zeros_like(jit), jit)
+
+
+def _jittered(A: torch.Tensor, jit_used: torch.Tensor, gradient_consistent: bool = True):
+    """A + jitter I per matrix. Gradient-consistent: the ladder picks a
+    stop-gradient *level*; the applied jitter scales differentiably with the
+    matrix magnitude (d/d kern.variance sees jitter proportional to the
+    variance, matching the value)."""
+    if not gradient_consistent:
+        return A + jit_used[..., None, None] * _eye(A)
+    diag_mean = _diag_mean(A)
+    mult = jit_used / torch.clamp(diag_mean.detach(), min=torch.finfo(A.dtype).tiny)
+    return A + (mult * diag_mean)[..., None, None] * _eye(A)
 
 
 def _jitchol(A: torch.Tensor, maxtries=None, gradient_consistent: bool = True):
+    """(L, jitter) with the ladder escalating per matrix of a batch."""
     if maxtries is None:
         maxtries = config.max_jitter_tries
     L0, ok0 = _chol(A)
-    if ok0:  # the probe is the result when the matrix is clean
-        return L0, torch.zeros((), dtype=A.dtype, device=A.device)
-    diag_mean = torch.abs(torch.mean(torch.diagonal(A, dim1=-2, dim2=-1)))
-    dm_sg = diag_mean.detach()
-    jit_used = _find_jitter(A.detach(), dm_sg * config.jitter, maxtries)
-    if gradient_consistent:
-        # the ladder picks a stop-gradient *level*; the applied jitter scales
-        # differentiably with the matrix magnitude (d/d kern.variance sees
-        # jitter proportional to the variance, matching the value)
-        mult = jit_used / torch.clamp(dm_sg, min=torch.finfo(A.dtype).tiny)
-        Aj = A + (mult * diag_mean) * _eye(A)
-    else:
-        Aj = A + jit_used * _eye(A)
-    L, ok = _chol(Aj)
-    if not ok:
-        # the reference's factorization returns NaN here, which the
-        # optimizer's non-finite guard turns into a rejected step
-        L = L + float("nan")
+    if bool(ok0.all()):  # the probe is the result when every matrix is clean
+        return L0, torch.zeros(A.shape[:-2], dtype=A.dtype, device=A.device)
+    jit_used = _find_jitter(A.detach(), ok0, lambda Aj: _chol(Aj)[1], maxtries)
+    L, ok = _chol(_jittered(A, jit_used, gradient_consistent))
+    # the reference's factorization returns NaN where it fails, which the
+    # optimizer's non-finite guard turns into a rejected step
+    L = torch.where(ok[..., None, None], L, torch.full_like(L, float("nan")))
     return L, jit_used
+
+
+def _batched_chol_inv(K: torch.Tensor):
+    """(L, L^-1) of (..., n, n), one batched factorization: gpy_tpu/util/
+    linalg.py:140-174. Above n = 256, a batch of at most 64 goes to the
+    left-looking blocked factorization (kernel B2/B3 on a CUDA tensor, its
+    plain twin on a CPU tensor) and a larger one to the blocked recursion;
+    torch.linalg takes n <= 256. A matrix that is not positive definite
+    comes out NaN, alone in its batch."""
+    n = K.shape[-1]
+    if n > BATCHED_REC_MIN_N:
+        n_batch = 1
+        for b in K.shape[:-2]:
+            n_batch *= b
+        if n_batch <= MAX_BATCH and (K.device.type == "cpu" or block_chol_available(K)):
+            return batched_chol_inv_ll(K)
+        return rec_chol_inv(K)
+    return chol_inv_native(K)
+
+
+def _batched_jitchol_inv(K: torch.Tensor, maxtries=None):
+    """Batched jitchol + inverse: gpy_tpu/util/linalg.py:177-226.
+
+    One batched factorization when every element is clean. Otherwise the
+    ladder escalates per element, probing with the same batched
+    factorization that gives the result, and one more factorization of
+    K + jitter I (zero jitter for the clean elements, whose factor is then
+    bit-equal to the first one's) is the result."""
+    if maxtries is None:
+        maxtries = config.max_jitter_tries
+    L0, Li0 = _batched_chol_inv(K)
+    ok0 = torch.isfinite(L0).all(dim=(-2, -1))
+    if bool(ok0.all()):
+        return L0, Li0
+    jit_used = _find_jitter(
+        K, ok0, lambda Kj: torch.isfinite(_batched_chol_inv(Kj)[0]).all(dim=(-2, -1)), maxtries)
+    return _batched_chol_inv(_jittered(K, jit_used))
 
 
 def jitchol(A: torch.Tensor, maxtries=None) -> torch.Tensor:
@@ -109,13 +166,17 @@ class _CholAndInv(torch.autograd.Function):
     (dLi = -Li dL Li), then the Cholesky pullback Kb = Li' phi(L' Lb) Li
     with phi = tril with the diagonal halved; the symmetric part is
     returned. The jitter ladder is a data-independent diagonal shift, so the
-    pullback is exact for the factored matrix K + jitter*I."""
+    pullback is exact for the factored matrix K + jitter*I. A K with leading
+    batch dimensions takes the batched rules; the backward broadcasts."""
 
     @staticmethod
     def forward(ctx, K, use_ladder):
         ctx.set_materialize_grads(False)
-        L = jitchol(K) if use_ladder else torch.linalg.cholesky(K)
-        Li = torch.linalg.solve_triangular(L, _eye(L), upper=False)
+        if K.ndim > 2:
+            L, Li = _batched_jitchol_inv(K) if use_ladder else _batched_chol_inv(K)
+        else:
+            L = jitchol(K) if use_ladder else torch.linalg.cholesky(K)
+            Li = torch.linalg.solve_triangular(L, _eye(L), upper=False)
         ctx.save_for_backward(L, Li)
         return L, Li
 
@@ -135,12 +196,15 @@ class _CholAndInv(torch.autograd.Function):
 
 
 def chol_and_inv(K: torch.Tensor):
-    """L = chol(K) (lower) and Li = L^-1, with a matmul-only backward."""
+    """L = chol(K) (lower) and Li = L^-1, with a matmul-only backward.
+    K may carry leading batch dimensions (one batched factorization)."""
     return _CholAndInv.apply(K, False)
 
 
 def jitchol_and_inv(K: torch.Tensor):
-    """`jitchol` + explicit factor inverse with the same matmul-only backward."""
+    """`jitchol` + explicit factor inverse with the same matmul-only backward.
+    K may carry leading batch dimensions; the jitter ladder then escalates
+    per batch element."""
     return _CholAndInv.apply(K, True)
 
 

@@ -209,11 +209,11 @@ def test_set_xy_refreshes_the_posterior_and_logpdf_matches():
 
 def test_unported_options_raise_not_implemented():
     _, tm = _twins(20, 2)
-    for opt in ("lbfgs_device", "adam", "rprop"):
+    for opt in ("lbfgs_device", "rprop"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.optimize(optimizer=opt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.optimize_restarts(num_restarts=2)
+        tm.optimize_restarts(num_restarts=2, mesh=object())
     with pytest.raises(ValueError, match="unknown optimizer"):
         tm.optimize(optimizer="newton")
     X, Y, _, _ = _data(20, 2)

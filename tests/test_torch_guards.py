@@ -11,7 +11,9 @@ import torch
 
 from gpy_tpu_torch.inference import IterativeGaussianInference
 from gpy_tpu_torch.kern import RBF, Matern32
+from gpy_tpu_torch.mcmc import HMC
 from gpy_tpu_torch.models import GPRegression
+from gpy_tpu_torch.ops import block_chol as tb
 from gpy_tpu_torch.ops import gram_matvec_fused as tf
 from gpy_tpu_torch.ops import rbf_gram as tg
 
@@ -51,7 +53,8 @@ def test_port_imports_neither_jax_nor_gpy_tpu():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, gpy_tpu_torch, gpy_tpu_torch.models, gpy_tpu_torch.ops.rbf_gram, "
-            "gpy_tpu_torch.ops.gram_matvec_fused, gpy_tpu_torch.inference.iterative; "
+            "gpy_tpu_torch.ops.gram_matvec_fused, gpy_tpu_torch.inference.iterative, "
+            "gpy_tpu_torch.mcmc, gpy_tpu_torch.ops.block_chol, gpy_tpu_torch.ops.blocked_linalg; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gpy_tpu')]; "
             "assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -127,3 +130,34 @@ def test_unknown_accum_raises():
                                                                  fused=True, fused_accum="tf32"))
     with pytest.raises(ValueError, match="accum"):
         m.log_likelihood()
+
+
+def test_cpu_batched_path_never_launches_the_block_kernels():
+    """HMC chains and parallel restarts on CPU tensors at N = 300 factor
+    through the blocked factorization with B2's plain twin: the counters stay 0 and
+    the CUDA library is never loaded."""
+    rng = np.random.default_rng(2)
+    X = rng.random((300, 2)) * 4.0
+    Y = np.sin(X[:, :1])
+    m = GPRegression(X, Y, RBF(2, device="cpu"), noise_var=0.1, device="cpu")
+    s = HMC(m, stepsize=1e-3, num_leapfrog=1).sample(num_samples=2, num_chains=2, seed=0)
+    assert s.shape == (2, 2, 3) and np.isfinite(s).all()
+    m.optimize_restarts(num_restarts=2, parallel=True, max_iters=1, verbose=False)
+    assert tb.launches == tb.inv_launches == 0
+    assert tb._lib_handle is None and tg.launches == 0
+
+
+def test_block_kernels_refuse_cpu_tensors():
+    A = torch.eye(128, dtype=torch.float32).expand(2, -1, -1).contiguous()
+    assert not tb.block_chol_available(A)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tb.block_chol_cuda(A)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tb.block_chol_inv_cuda(A)
+    assert tb._lib_handle is None
+
+
+def test_hmc_on_the_default_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        HMC(GPRegression(np.zeros((4, 2)), np.zeros((4, 1))))

@@ -50,7 +50,16 @@ def test_name_present_in_port(module, name):
     assert hasattr(importlib.import_module(module), name), f"{module}.{name} missing"
 
 
+@pytest.mark.parametrize("name", ["HMC", "HMC_shortcut", "Metropolis_Hastings"])
+def test_mcmc_present(name):
+    """tests/test_inventory.py:114-117."""
+    assert hasattr(importlib.import_module("gpy_tpu_torch.mcmc"), name)
+
+
 def test_port_names_beyond_the_reference_lists():
     """The port's own additions stay importable under the reference's names."""
     from gpy_tpu_torch.inference import IterativeGaussianInference, IterativePosterior  # noqa
     from gpy_tpu_torch.ops import gram_matvec, gram_matvec_fused, pivoted_chol  # noqa
+    from gpy_tpu_torch.ops.block_chol import (batched_chol_inv, batched_chol_inv_ll,  # noqa
+                                              block_chol, block_chol_inv, rec_block_chol_inv)
+    from gpy_tpu_torch.ops.blocked_linalg import rec_chol_inv, tri_inv_doubling  # noqa
