@@ -41,7 +41,9 @@ Phases, each printing one JSON line:
                 likewise; NaN isolation of a non-SPD element in both; the
                 blocked routines (left-looking, right-looking version 1
                 and 2, recursive with B4 leaves) at (8|16, 1000, 1000) float32
-                against a float64 factorization, launches counted;
+                against a float64 factorization, launches counted; B2/B3's
+                bad pivots inside, between and after its 16-column panels
+                against the twin's first NaN column;
  12. hmc      -- the batched main path at bench.py's HMC stage (N=1000, D=2,
                 RBF, noise 0.1, float32, stepsize 0.02, 10 leapfrog steps,
                 40 samples) for 1, 2, 4, 8 and 16 chains: one warm
@@ -52,9 +54,11 @@ Phases, each printing one JSON line:
                 unbatched path and a float64 twin; one HMC_shortcut run;
  13. restarts -- optimize_restarts(parallel=True) with 16 restarts on the
                 same model, against L-BFGS-B;
- 14. chol_times -- CUDA-event times of B2/B3 and B4 at (8|16, 128, 128) and
-                of the left-looking factorization at (8, 1000, 1000), each
-                beside its plain twin, its bound and one PyTorch call;
+ 14. chol_times -- B2/B3 at (C, 128, 128), C = 2, 4, 8, 16, float32 and
+                float64, by the profiler's device time and by CUDA events;
+                CUDA-event times of B4 at (8|16, 128, 128) and of the
+                left-looking factorization at (8, 1000, 1000); each beside
+                its plain twin, its bound and one PyTorch call;
  15. hmc_profile -- device time by kernel over one batched logp+gradient at
                 8 chains.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
@@ -121,6 +125,46 @@ def cuda_ms(fn, reps=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(kernel_fn, library_fn=None, reps=50, warmup=3):
+    """Device time per call from torch.profiler, for a wrapper that launches
+    one block_chol kernel and, optionally, a library call: `reps` calls of
+    each in turn, each kernel's self time summed and divided by the number
+    of block_chol launches the profiler recorded. At tens of microseconds a
+    call, `cuda_ms` can read the host's enqueue time of the Python wrapper
+    instead of the kernel; this clock cannot. Dividing by the recorded
+    launches, not by reps, keeps it right when the profiler drops device
+    events: on an H100, late in a long process, sessions lost their first
+    launches. Returns (kernel ms, library ms, library kernels per call,
+    block_chol launches recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        kernel_fn()
+        if library_fn is not None:
+            library_fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kernel_fn()
+                if library_fn is not None:
+                    library_fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [e for e in rows if "block_chol_kernel<" in e.key]
+        if len(ours) == 1 and 5 * ours[0].count >= reps:
+            break
+    else:
+        raise RuntimeError(f"chip_smoke check failed: torch.profiler recorded fewer than "
+                           f"{reps // 5} of {reps} block_chol launches in five sessions")
+    n = ours[0].count
+    others = [e for e in rows if e is not ours[0]]
+    return (ours[0].self_device_time_total / n / 1e3,
+            sum(e.self_device_time_total for e in others) / n / 1e3,
+            sum(e.count for e in others) / n, n)
 
 
 def host_ms(fn, reps=5, warmup=2) -> float:
@@ -735,6 +779,8 @@ HMC_N, HMC_D, HMC_SAMPLES, HMC_LEAPFROG, HMC_STEP = 1000, 2, 40, 10, 2e-2
 HMC_CHAINS = (1, 2, 4, 8, 16)
 HMC_RESTARTS = 16
 CHOL_BLOCK = 128
+# the batches the HMC chains and the restarts hand B2/B3, timed in chol_times
+CHOL_TIME_BATCHES = (2, 4, 8, 16)
 
 
 def chol_batches(bc):
@@ -801,24 +847,86 @@ def check_block_chol_inv(bc, C, dtype):
             "inv_resid": resid, "tol": [CHOL_TOL[name], CHOL_INV_TOL[name], CHOL_RESID_TOL[name]]}
 
 
+def rank_deficient_block(n, rank, dtype, seed):
+    """M M' with M = [L1; R] (n x rank): L1 the factor of a well-conditioned
+    rank x rank SPD matrix, R random. Its first `rank` pivots are L1's
+    squared diagonal and the Schur complement of the rest is 0 up to
+    rounding (~3e-6 here in float32). Entry [rank, rank] (~rank) less 1
+    stays positive, but pivot `rank` becomes -1: the bad pivot appears
+    only through the updates of the columns before it."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G = torch.randn(rank, 40, generator=g, dtype=torch.float64)
+    L1 = torch.linalg.cholesky(G @ G.T + rank * torch.eye(rank, dtype=torch.float64))
+    M = torch.cat([L1, torch.randn(n - rank, rank, generator=g, dtype=torch.float64)])
+    A = M @ M.T
+    A[rank, rank] -= 1.0
+    return A.to(dtype=dtype, device="cuda")
+
+
+def first_nan_column(L) -> int:
+    """The first column of L that holds a NaN (its width when none does)."""
+    cols = L.isnan().any(0).nonzero().flatten().tolist()
+    return int(cols[0]) if cols else L.shape[-1]
+
+
+# B2/B3's bad pivots: a diagonal entry set to -5 inside the first 16-column
+# panel, on the first panel boundary, and in the last panel; then a pivot
+# that turns negative only through the trailing updates (column 100, in the
+# seventh panel)
+NAN_PIVOTS = (10, 16, 120)
+NAN_RANK = 100
+
+
 def check_nan_isolation(bc, dtype):
-    """One non-SPD element of 8: NaN in its factor, the other seven
-    bit-equal to a clean run, for both kernels."""
+    """A bad pivot in element 3 of 8. B2/B3, for each case of NAN_PIVOTS
+    and the rank-deficient block: NaN only in element 3, its NaN entries
+    and first NaN column the plain twin's, its columns before that column
+    within CHOL_TOL of the twin (and, for an injected pivot, bit-equal to
+    the clean run's), the other seven elements bit-equal to a clean run.
+    B4 on the first case: NaN only in element 3, the others bit-equal."""
     import torch
 
     name = str(dtype).replace("torch.", "")
     A = chol_inputs(8, CHOL_BLOCK, dtype, seed=77)
+    others = (0, 1, 2, 4, 5, 6, 7)
+    clean = bc.block_chol_cuda(A)
+    cases = []
+    for col in NAN_PIVOTS + (NAN_RANK,):
+        bad = A.clone()
+        if col == NAN_RANK:
+            bad[3] = rank_deficient_block(CHOL_BLOCK, NAN_RANK, dtype, seed=78)
+        else:
+            bad[3, col, col] = -5.0
+        L, Lp = bc.block_chol_cuda(bad), bc.block_chol_plain(bad)
+        torch.cuda.synchronize()
+        label = f"block_chol {name} bad pivot at {col}"
+        nan = L.isnan().flatten(1).any(1).tolist()
+        check(nan == [c == 3 for c in range(8)], f"{label}: NaN in elements {nan}")
+        first = first_nan_column(L[3])
+        check(first == first_nan_column(Lp[3]) == col,
+              f"{label}: first NaN column {first}, twin {first_nan_column(Lp[3])}")
+        check(torch.equal(L[3].isnan(), Lp[3].isnan()), f"{label}: NaN entries differ from twin")
+        err = float((L[3, :, :col] - Lp[3, :, :col]).abs().max())
+        check(err <= CHOL_TOL[name], f"{label}: columns before it differ from twin by {err}")
+        if col != NAN_RANK:
+            check(torch.equal(L[3, :, :col], clean[3, :, :col]),
+                  f"{label}: columns before it differ from the clean run")
+        for c in others:
+            check(torch.equal(L[c], clean[c]), f"{label}: element {c} changed")
+        cases.append({"column": col, "first_nan_column": first, "pre_nan_err_vs_twin": err,
+                      "kind": "rank-deficient" if col == NAN_RANK else "diagonal set to -5"})
     bad = A.clone()
     bad[3, 10, 10] = -5.0
-    for label, fn in (("block_chol", lambda X: (bc.block_chol_cuda(X),)),
-                      ("block_chol_inv", bc.block_chol_inv_cuda)):
-        for clean, dirty in zip(fn(A), fn(bad)):
-            torch.cuda.synchronize()
-            nan = torch.isnan(dirty).flatten(1).any(1).tolist()
-            check(nan == [c == 3 for c in range(8)], f"{label} {name}: NaN rows {nan}")
-            for c in (0, 1, 2, 4, 5, 6, 7):
-                check(torch.equal(clean[c], dirty[c]), f"{label} {name}: element {c} changed")
-    return {"dtype": name, "bad_element": 3, "nan_only_there": True, "others_bit_equal": True}
+    for clean_x, dirty in zip(bc.block_chol_inv_cuda(A), bc.block_chol_inv_cuda(bad)):
+        torch.cuda.synchronize()
+        nan = dirty.isnan().flatten(1).any(1).tolist()
+        check(nan == [c == 3 for c in range(8)], f"block_chol_inv {name}: NaN rows {nan}")
+        for c in others:
+            check(torch.equal(clean_x[c], dirty[c]), f"block_chol_inv {name}: element {c} changed")
+    return {"dtype": name, "bad_element": 3, "block_chol": cases,
+            "block_chol_inv": {"column": 10, "nan_only_there": True, "others_bit_equal": True}}
 
 
 def hmc_data(seed=0):
@@ -1090,20 +1198,37 @@ def chol_bound(C, n, dtype_name, outputs):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def time_block_chol(bc, C, dtype):
+    """B2/B3 at (C, 128, 128): the profiler's device time per launch
+    (`ms`) beside the event time of back-to-back calls, and the same two
+    clocks for batched torch.linalg.cholesky on the same inputs."""
+    import torch
+
+    name = str(dtype).replace("torch.", "")
+    A = chol_inputs(C, CHOL_BLOCK, dtype, seed=5 + C)
+    bound, by = chol_bound(C, CHOL_BLOCK, name, 1)
+    ms, lib_ms, lib_kernels, recorded = device_ms(lambda: bc.block_chol_cuda(A),
+                                                  lambda: torch.linalg.cholesky(A))
+    return {"C": C, "n": CHOL_BLOCK, "dtype": name, "ms": ms,
+            "event_ms": cuda_ms(lambda: bc.block_chol_cuda(A), reps=50),
+            "plain_ms": cuda_ms(lambda: bc.block_chol_plain(A), reps=3, warmup=1),
+            "library_ms": lib_ms, "library_kernels_per_call": lib_kernels,
+            "library_event_ms": cuda_ms(lambda: torch.linalg.cholesky(A), reps=50),
+            "profiled_calls": recorded,
+            "library": "torch.linalg.cholesky (batched)", "bound_ms": bound, "bound_by": by}
+
+
 def chol_times(bc, m, smi):
     import torch
 
-    rows = {"block_chol": [], "block_chol_inv": []}
+    rows = {"block_chol": [time_block_chol(bc, C, dt) for dt in (torch.float32, torch.float64)
+                           for C in CHOL_TIME_BATCHES],
+            "block_chol_timing": "ms and library_ms: torch.profiler device time per call; "
+                                 "event_ms and library_event_ms: CUDA events over 50 calls",
+            "block_chol_inv": []}
     for C in (8, 16):
         A = chol_inputs(C, CHOL_BLOCK, torch.float32, seed=5 + C)
         eye = torch.eye(CHOL_BLOCK, device="cuda").expand(C, -1, -1)
-        bound, by = chol_bound(C, CHOL_BLOCK, "float32", 1)
-        rows["block_chol"].append({
-            "C": C, "n": CHOL_BLOCK, "dtype": "float32",
-            "ms": cuda_ms(lambda: bc.block_chol_cuda(A), reps=50),
-            "plain_ms": cuda_ms(lambda: bc.block_chol_plain(A), reps=3, warmup=1),
-            "library_ms": cuda_ms(lambda: torch.linalg.cholesky(A), reps=50),
-            "library": "torch.linalg.cholesky (batched)", "bound_ms": bound, "bound_by": by})
         bound, by = chol_bound(C, CHOL_BLOCK, "float32", 2)
         rows["block_chol_inv"].append({
             "C": C, "n": CHOL_BLOCK, "dtype": "float32",
@@ -1236,6 +1361,7 @@ def main() -> int:
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
+    b2 = next(r for r in ctimes["block_chol"] if r["C"] == 8 and r["dtype"] == "float32")
     mv_all = itimes["gram_matvec_fused"]
     emit({"kernels": [{
         "name": "rbf_gram", "route": "cuda", "source": "gpy_tpu_torch/csrc/rbf_gram.cu",
@@ -1270,12 +1396,11 @@ def main() -> int:
         "replaces": "gpy_tpu/ops/pallas_chol.py:123 (_block_kernel_v2) and :175 "
                     "(_block_kernel_v2_multi)",
         "launches": hmc_rec["launches"]["block_chol"], "max_abs_err": chol_err["block_chol"],
-        "shape": "(8, 128, 128) float32", "ms": ctimes["block_chol"][0]["ms"],
-        "plain_ms": ctimes["block_chol"][0]["plain_ms"],
-        "bound_ms": ctimes["block_chol"][0]["bound_ms"],
-        "bound_by": ctimes["block_chol"][0]["bound_by"],
-        "library_ms": ctimes["block_chol"][0]["library_ms"],
-        "library": ctimes["block_chol"][0]["library"],
+        "shape": "(8, 128, 128) float32", "ms": b2["ms"], "plain_ms": b2["plain_ms"],
+        "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
+        "library_ms": b2["library_ms"], "library": b2["library"],
+        "timing": "ms and library_ms are torch.profiler device time per call; "
+                  f"event_ms {b2['event_ms']}, library_event_ms {b2['library_event_ms']}",
     }, {
         "name": "block_chol_inv", "route": "cuda", "source": "gpy_tpu_torch/csrc/block_chol.cu",
         "replaces": "gpy_tpu/ops/pallas_chol.py:64 (_block_kernel)",

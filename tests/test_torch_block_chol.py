@@ -158,6 +158,45 @@ def test_nan_isolation(inverse):
         assert torch.equal(L[c], Lb[c]) and torch.equal(Li[c], Lib[c])
 
 
+def _rank_deficient(n=128, rank=100, seed=78):
+    """M M' with M = [L1; R] (n x rank), L1 the factor of a well-conditioned
+    SPD matrix: the Schur complement after `rank` columns is 0 up to
+    rounding, so entry [rank, rank] less 1 (still ~ +rank) turns pivot
+    `rank` to -1 only through the updates of the columns before it."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((rank, 40))
+    L1 = np.linalg.cholesky(G @ G.T + rank * np.eye(rank))
+    M = np.vstack([L1, rng.standard_normal((n - rank, rank))])
+    A = M @ M.T
+    A[rank, rank] -= 1.0
+    return A
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("col", [10, 16, 120, 100],
+                         ids=["first_panel", "panel_boundary", "last_panel", "after_updates"])
+def test_bad_pivot_first_nan_column(col, dtype):
+    """The contract chip_smoke.py holds B2/B3 to against this twin: a bad
+    pivot at column `col` of element 3 makes exactly the lower-triangle
+    entries of columns >= col NaN, leaves the columns before it as in a
+    clean run and the other elements bit-equal. (The reference's 8-wide
+    panels put NaN from the first column of the pivot's panel on.)"""
+    A = _spd(8, 128, 77, dtype=dtype)
+    bad = A.copy()
+    if col == 100:
+        bad[3] = _rank_deficient()
+    else:
+        bad[3, col, col] = -5.0
+    as_t = _f32 if dtype == np.float32 else _f64
+    clean, L = bc.block_chol_plain(as_t(A)), bc.block_chol_plain(as_t(bad))
+    lower = torch.tril(torch.ones(128, 128, dtype=torch.bool))
+    assert torch.equal(torch.isnan(L[3]), lower & (torch.arange(128) >= col)[None, :])
+    if col != 100:
+        assert torch.equal(L[3, :, :col], clean[3, :, :col])
+    for c in (0, 1, 2, 4, 5, 6, 7):
+        assert torch.equal(L[c], clean[c])
+
+
 def test_tri_inv_doubling_matches_reference():
     from gpy_tpu.ops.blocked_linalg import tri_inv_doubling
 

@@ -32,6 +32,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "chol_probe.py")
 
 
 def test_port_imports_neither_jax_nor_gpy_tpu():
