@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
                 its bound, objective+gradient and predict times;
   6. profile -- device time by kernel over one objective+gradient;
   7. kernels_fused -- the fused Gram-matvec (B5) against its plain twin for
-                the four families, the three accum modes and six shapes,
+                the four families, the three accum modes and nine shapes
+                (and once on unaligned views),
                 and its gradient moments (B6, through the autograd
                 Function) against autograd of the plain twin;
   8. iterative -- the iterative exact-GP main path at bench.py's N=50,000
@@ -29,8 +30,9 @@ Phases, each printing one JSON line:
                 around each step, a float64 materialized twin at the
                 same probes as reference, and the exact NLML (float64
                 Cholesky) at the start and after optimize;
-  9. iterative_times -- CUDA-event times of B5 and B6 at N=50,000 beside
-                their plain twins and bounds, each kernel's error there
+  9. iterative_times -- B5 at N=50,000 by the profiler's device time and
+                by CUDA events (R = 9, 16, 256, 1), B6 by events, each
+                beside its plain twin and bounds, each kernel's error there
                 checked against its plain twin, NLML+gradient and predict
                 times of both models, the materialized matvec's matmul;
  10. iterative_profile -- device time by kernel over one NLML+gradient of
@@ -79,6 +81,8 @@ from concurrent.futures import ThreadPoolExecutor
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# dense TF32 on the tensor cores (the same data sheet)
+PEAK_TF32_TC = 495e12
 
 SLICE_N, SLICE_D, N_PRED = 8192, 8, 2048
 
@@ -127,17 +131,18 @@ def cuda_ms(fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(kernel_fn, library_fn=None, reps=50, warmup=3):
+def device_ms(kernel_fn, library_fn=None, reps=50, warmup=3, kernel="block_chol_kernel<"):
     """Device time per call from torch.profiler, for a wrapper that launches
-    one block_chol kernel and, optionally, a library call: `reps` calls of
-    each in turn, each kernel's self time summed and divided by the number
-    of block_chol launches the profiler recorded. At tens of microseconds a
+    one kernel whose name contains `kernel` (B2's by default) and,
+    optionally, a library call: `reps` calls of each in turn, each kernel's
+    self time summed and divided by the number of launches of `kernel` the
+    profiler recorded. At tens of microseconds a
     call, `cuda_ms` can read the host's enqueue time of the Python wrapper
     instead of the kernel; this clock cannot. Dividing by the recorded
     launches, not by reps, keeps it right when the profiler drops device
     events: on an H100, late in a long process, sessions lost their first
     launches. Returns (kernel ms, library ms, library kernels per call,
-    block_chol launches recorded)."""
+    launches of `kernel` recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,12 +159,12 @@ def device_ms(kernel_fn, library_fn=None, reps=50, warmup=3):
                     library_fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        ours = [e for e in rows if "block_chol_kernel<" in e.key]
+        ours = [e for e in rows if kernel in e.key]
         if len(ours) == 1 and 5 * ours[0].count >= reps:
             break
     else:
         raise RuntimeError(f"chip_smoke check failed: torch.profiler recorded fewer than "
-                           f"{reps // 5} of {reps} block_chol launches in five sessions")
+                           f"{reps // 5} of {reps} {kernel} launches in five sessions")
     n = ours[0].count
     others = [e for e in rows if e is not ours[0]]
     return (ours[0].self_device_time_total / n / 1e3,
@@ -374,8 +379,8 @@ FUSED_BWD_TOL = 2e-6
 # the same at the main path's N=50,000, D=4: B5 by R against the float32
 # plain twin, B6 against the float64 plain twin. ~10x the readings on an
 # H100 (B5 2.6e-6 at R=9, 1.45e-5 at R=256 (the wide kernel), 3.2e-6 at
-# R=1; B6 8.7e-8)
-FUSED_FWD_TOL_50K = {9: 3e-5, 256: 1.5e-4, 1: 3e-5}
+# R=1; B6 8.7e-8); R=16 takes R=9's limit
+FUSED_FWD_TOL_50K = {9: 3e-5, 256: 1.5e-4, 1: 3e-5, 16: 3e-5}
 FUSED_BWD_TOL_50K = 1e-6
 
 
@@ -450,10 +455,35 @@ def check_fused_moments(fm, family, D, N=4096, R=9):
     return rels
 
 
+def check_fused_unaligned(fm):
+    """B5 on X2s and V whose data are not 16-byte aligned (row-offset views
+    at 12 and 36 bytes): the wrapper copies them before the kernel's
+    16-byte copies read them."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(77)
+    N, D, R = 2049, 3, 9
+    Xb = torch.tensor(g.random((N + 1, D)) * 2.0, dtype=torch.float32, device="cuda")
+    Vb = torch.tensor(g.standard_normal((N + 1, R)), dtype=torch.float32, device="cuda")
+    Xs, X2s, V = Xb[:-1], Xb[1:], Vb[1:]
+    v = torch.full((1,), 1.3, dtype=torch.float32, device="cuda")
+    check(X2s.data_ptr() % 16 != 0 and V.data_ptr() % 16 != 0, "unaligned: the views are aligned")
+    out = fm.stationary_gram_matvec_cuda(Xs, X2s, V, v, 0)
+    ref = fm.stationary_gram_matvec_plain(Xs, X2s, V, v, 0)
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    check(rel <= FUSED_FWD_TOL, f"gram_matvec_fused unaligned views: rel err {rel}")
+    return rel
+
+
 def run_fused_checks(fm):
     shapes = [("square", 4096, None, 4, 9), ("ragged_vector", 3001, None, 4, None),
               ("narrow_r4", 2048, None, 4, 4), ("r_chunks", 2048, None, 4, 130),
-              ("wide_d12", 2048, None, 12, 9), ("rectangular", 2048, 3000, 4, 9)]
+              ("wide_d12", 2048, None, 12, 9), ("rectangular", 2048, 3000, 4, 9),
+              # the register-tile kernel's edges: D=1 with a ragged last
+              # tile, DMAX=8 at the widest R, ragged rows, columns and R
+              ("d1", 2049, None, 1, 9), ("d8_r16", 2048, None, 8, 16),
+              ("ragged_rect", 2047, 3001, 4, 9)]
     fwd, worst = [], 0.0
     for fname, fam in FAMILIES.items():
         for accum in ("exact", "f32x3", "fast"):
@@ -464,6 +494,7 @@ def run_fused_checks(fm):
     bwd = [{"family": fname, "D": D, "rel_err": check_fused_moments(fm, fam, D)}
            for fname, fam in FAMILIES.items() for D in (4, 12)]
     return {"phase": "kernels_fused", "gram_matvec_fused": fwd, "fwd_tol": FUSED_FWD_TOL,
+            "unaligned_views_rel_err": check_fused_unaligned(fm),
             "gram_moments": bwd, "bwd_tol": FUSED_BWD_TOL,
             "max_fwd_rel_err": max(r["rel_err"] for r in fwd),
             "max_bwd_rel_err": max(max(r["rel_err"].values()) for r in bwd)}, worst
@@ -671,13 +702,37 @@ def run_iterative():
     return models, Xs, rec
 
 
-def fused_matvec_bound(N, M, D, R):
-    """Least time for B5 (float32): inputs read and the output written once
-    over the memory rate, or (3D+3) operations per Gram entry for K and 2R
-    for the contraction over the float32 peak."""
+def fused_matvec_bounds(N, M, D, R):
+    """Least time for B5 (float32). `bound_ms`: the inputs read and the
+    output written once over the memory rate (`bytes_ms`), or (3D+3)
+    operations per Gram entry for K and 2R for the contraction over the
+    float32 peak, whichever is longer. `bound_tc_ms`: the same work with the
+    contraction on the tensor cores, the longest of the bytes, K's 3D+3 at
+    the float32 peak and 3 passes (3xTF32) of 2R at the TF32 peak."""
     t_bytes = 4 * (N * D + M * D + M * R + N * R + 1) / PEAK_BYTES_S
     t_ops = N * M * (3 * D + 3 + 2 * R) / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    tc = {"bytes": t_bytes, "operations": N * M * (3 * D + 3) / PEAK_FLOPS["float32"],
+          "tensor_cores": N * M * 2 * R * 3 / PEAK_TF32_TC}
+    tc_by = max(tc, key=tc.get)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_tc_ms": tc[tc_by] * 1e3, "bound_tc_by": tc_by, "bytes_ms": t_bytes * 1e3}
+
+
+# the main path's B5 instance: RBF, R chunk 9, DMAX 4
+MAIN_B5_INSTANCE = "gram_matvec_tile_kernelILi0ELi9ELi4E"
+
+
+def ptxas_of(report, instance):
+    """ptxas' lines (registers, spills) for the kernel whose mangled name
+    holds `instance`, from nvcc's -Xptxas -v report."""
+    lines, keep = [], False
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            keep = instance in ln
+        elif keep and ("registers" in ln or "spill" in ln):
+            lines.append(ln.split(":", 1)[-1].strip())
+    return lines
 
 
 def gram_moments_bound(N, D, R):
@@ -690,25 +745,32 @@ def gram_moments_bound(N, D, R):
 
 
 def time_fused(fm, R, reps, plain_reps):
+    """B5 at N=50,000, D=4: the profiler's device time per launch (`ms`)
+    beside the event time, the plain twin's time, its error and bounds."""
     import torch
 
     X, _, V, ls, v = fused_inputs(ITER_N, None, ITER_D, R, seed=11)
     Xs = (X / ls).contiguous()
     v1 = v.reshape(1)
-    ms = cuda_ms(lambda: fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0), reps=reps, warmup=1)
+
+    def run():
+        return fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0)
+
+    ms = device_ms(run, reps=reps, warmup=1, kernel="gram_matvec")[0]
+    event_ms = cuda_ms(run, reps=reps, warmup=1)
     plain_ms = cuda_ms(lambda: fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0),
                        reps=plain_reps, warmup=1)
-    out = fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0)
+    out = run()
     ref = fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0)
     check(torch.isfinite(out).all(), f"gram_matvec_fused N={ITER_N} R={R}: non-finite output")
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
     tol = FUSED_FWD_TOL_50K[R]
     check(rel <= tol, f"gram_matvec_fused N={ITER_N} R={R}: rel err {rel} > {tol}")
-    bound_ms, bound_by = fused_matvec_bound(ITER_N, ITER_N, ITER_D, R)
-    return {"N": ITER_N, "D": ITER_D, "R": R, "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "rel_err": rel,
-            "rel_tol": tol, "library_ms": None}
+    return {"N": ITER_N, "D": ITER_D, "R": R, "dtype": "float32", "ms": ms,
+            "event_ms": event_ms, "plain_ms": plain_ms,
+            **fused_matvec_bounds(ITER_N, ITER_N, ITER_D, R), "max_abs_err": err,
+            "rel_err": rel, "rel_tol": tol, "library_ms": None}
 
 
 def time_moments(fm, R=9):
@@ -742,8 +804,11 @@ def iterative_times(models, Xs, fm, smi):
 
     rec = {"phase": "iterative_times", "nvidia_smi": smi,
            "gram_matvec_fused": [time_fused(fm, 9, reps=20, plain_reps=3),
+                                 time_fused(fm, 16, reps=20, plain_reps=1),
                                  time_fused(fm, 256, reps=3, plain_reps=2),
                                  time_fused(fm, 1, reps=10, plain_reps=2)],
+           "gram_matvec_fused_timing": "ms: torch.profiler device time per launch; "
+                                       "event_ms: CUDA events over the same launches",
            "gram_moments": [time_moments(fm)]}
     torch.cuda.empty_cache()
     for tag, (m, _) in models.items():
@@ -1380,8 +1445,11 @@ def main() -> int:
         "max_abs_err": max([fused_err] + [t["max_abs_err"] for t in mv_all]),
         "main_path_rel_err": {f"R{t['R']}": t["rel_err"] for t in mv_all},
         "main_path_rel_tol": {f"R{t['R']}": t["rel_tol"] for t in mv_all},
-        "ms": mv["ms"], "plain_ms": mv["plain_ms"],
-        "bound_ms": mv["bound_ms"], "bound_by": mv["bound_by"], "library_ms": None,
+        "shape": f"N={ITER_N}, D={ITER_D}, R=9", "ms": mv["ms"],
+        "event_ms": mv["event_ms"], "plain_ms": mv["plain_ms"],
+        "bound_ms": mv["bound_ms"], "bound_by": mv["bound_by"],
+        "bound_tc_ms": mv["bound_tc_ms"], "bound_tc_by": mv["bound_tc_by"],
+        "ptxas": ptxas_of(reports["gram_matvec_fused"], MAIN_B5_INSTANCE), "library_ms": None,
     }, {
         "name": "gram_moments", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",

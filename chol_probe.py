@@ -50,11 +50,11 @@ def tool(name):
     return path if os.path.exists(path) else None
 
 
-def build_other(_build, label, src):
-    """nvcc with the build's own flags into _build/other/<label>/."""
+def build_other(_build, label, src, name="block_chol"):
+    """nvcc with the build's own flags into _build/other/<label>/lib<name>.so."""
     out = os.path.join(_build.BUILD_DIR, "other", label)
     os.makedirs(out, exist_ok=True)
-    so = os.path.join(out, "libblock_chol.so")
+    so = os.path.join(out, f"lib{name}.so")
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
                        capture_output=True, text=True)
     s.check(r.returncode == 0, f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
@@ -77,12 +77,13 @@ PHASE_COPIES = {
 }
 
 
-def phase_copies(src_path, out_dir):
-    """Write PHASE_COPIES of src_path into out_dir: [(label, path)]."""
+def phase_copies(src_path, out_dir, copies=None):
+    """Write the timing-only copies (PHASE_COPIES unless given) of src_path
+    into out_dir: [(label, path)]."""
     src = open(src_path).read()
     os.makedirs(out_dir, exist_ok=True)
     out = []
-    for label, subs in PHASE_COPIES.items():
+    for label, subs in (PHASE_COPIES if copies is None else copies).items():
         text = src
         for old, new in subs:
             s.check(text.count(old) == 1, f"{old!r} is not in {src_path} once")
@@ -130,15 +131,23 @@ def parse_sass(text):
     return out
 
 
-def sass(so, label):
+def sass(so, label, prefix="sass", keep=None):
+    """parse_sass of `so`; the listing goes to chiprun_out/<prefix>_<label>.txt,
+    whole or, with `keep`, only the functions whose names hold one of its
+    fragments."""
     cuobjdump = tool("cuobjdump")
     if cuobjdump is None:
         return {"error": "no cuobjdump"}
     r = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True)
     s.check(r.returncode == 0, f"cuobjdump failed: {r.stderr}")
+    text = r.stdout
+    if keep is not None:
+        parts = re.split(r"(?=\n\s*Function : )", text)
+        text = "".join(p for p in parts
+                       if "Function : " in p and any(k in p.split("\n", 2)[1] for k in keep))
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, f"sass_{label}.txt"), "w") as f:
-        f.write(r.stdout)
+    with open(os.path.join(OUT_DIR, f"{prefix}_{label}.txt"), "w") as f:
+        f.write(text)
     return parse_sass(r.stdout)
 
 

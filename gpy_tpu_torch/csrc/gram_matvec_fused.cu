@@ -25,22 +25,24 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
 // cores): at N = M = 50,000, D = 4, R = 9 the kernel reads ~2.6 MB and
-// writes 1.8 MB (~1.3 us) but does ~(3D + 3) + 2R = 33 operations per
-// entry, 8.3e10 in all (~1.2 ms). It is bound by operations, and the exp
-// of every entry also runs on the special-function units.
+// writes 1.8 MB (~1.5 us) but does ~(3D + 3) + 2R = 33 operations per
+// entry, 8.3e10 in all (~1.2 ms). It is bound by operations, and the exp of
+// every entry also runs on the special-function units.
 //
-// B5 design: one 256-thread block owns 64 output rows and one chunk of RC
-// right-hand-side columns (grid.y walks the chunks, so any R works). It
-// walks every 64-column tile of X2: the tile's inputs are staged 16
-// dimensions at a time in shared memory (transposed and padded, as in
-// rbf_gram.cu), each thread forms a 4x4 block of K in registers, and
-// contracts it with the tile's V rows (staged in shared memory with row
-// stride RC + 1, so the reads are conflict-free) into a 4 x RC accumulator,
-// RC the smallest of 1, 9, 16 that holds R (a wide variant, below, takes
-// R > 16). After the last tile the 16 threads that share rows sum their accumulators with
-// warp shuffles, and each output entry is written once: no atomics, and the
-// result does not depend on scheduling. All three accum modes of the
-// reference run here as float32 FFMA.
+// B5 for D <= 8 and R <= 16 (the main path) is the register-tile kernel
+// gram_matvec_tile_kernel below. The chunk kernel takes D > 8: one
+// 256-thread block owns 64 output rows and one chunk of RC right-hand-side
+// columns (grid.y walks the chunks, so any R works). It walks every
+// 64-column tile of X2: the tile's inputs are staged 16 dimensions at a
+// time in shared memory (transposed and padded, as in rbf_gram.cu), each
+// thread forms a 4x4 block of K in registers, and contracts it with the
+// tile's V rows (staged in shared memory with row stride RC + 1, so the
+// reads are conflict-free) into a 4 x RC accumulator, RC the smallest of 1,
+// 9, 16 that holds R (a wide variant, below, takes R > 16). After the last
+// tile the 16 threads that share rows sum their accumulators with warp
+// shuffles, and each output entry is written once: no atomics, and the
+// result does not depend on scheduling. Every kernel here contracts in
+// float32 FFMA, whatever the reference's accum mode.
 //
 // B6 design: the same tile walk, square. Per tile a thread forms its 4x4
 // block of W (R staged 16 at a time), r2, K and -dK/dr2, then the moments
@@ -55,9 +57,10 @@
 // uses no fast-math flag and flushes no denormals, so this stays 0, not
 // inf * 0.
 //
-// What this simple design leaves on the table: the tensor cores (the
+// What the chunk and wide kernels leave on the table: the tensor cores (the
 // contraction with V is a GEMM once R is large), TMA and a persistent
-// schedule, and re-staging of the row tile for every column tile.
+// schedule, and re-staging of the row tile for every column tile; the
+// register-tile kernel takes the last.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -465,6 +468,281 @@ __global__ void gram_moments_reduce(const double* __restrict__ partial,
   out[q] = q == 0 ? s / static_cast<double>(var[0]) : s;
 }
 
+// B5 for D <= 8 and R <= 16 (the main path: D = 4, R = 9), redesigned for
+// Hopper. One 256-thread block owns 128 rows, 16 a warp; each thread keeps
+// the coordinates of its two rows (g and g + 8 of its warp's 16, g =
+// lane / 4) in registers for the whole column walk, DMAX of them, the
+// runtime D padded with zeros ((0 - 0)^2 adds exactly 0). The block walks
+// X2 in tiles of kCols columns. The raw rows of X2 and V of tile j + 1 are
+// copied into shared memory with 16-byte cp.async (the ragged last tile
+// zero-filled) while tile j computes, and each tile is re-laid once, after
+// it lands: X2's coordinates scaled by the family's constant and padded to
+// DMAX, V's rows padded to a multiple of 4, columns past M as zeros. One
+// barrier a tile. Per 8-column step a thread forms four entries of K (rows
+// g, g + 8 by columns t, t + 4, t = lane % 4) with one ex2.approx each on
+// the SFU, K = v * ex2(.) with the multiply by v last (a square Gram's
+// diagonal stays exactly v), and adds K V into 2 x RC float32 accumulators
+// with FFMA; after the last tile the four lanes that share a row sum them
+// with shuffles in a fixed order. V is zero past M, so the ragged last tile
+// needs no mask. Each output entry is written once by one thread: no
+// atomics, and the result does not depend on scheduling. Every accum mode
+// runs this FFMA contraction: a 3xTF32 contraction on the tensor cores was
+// slower at R = 9 and moved the CG's NLML estimate past its limit
+// (PERF.md, the B5 findings).
+constexpr int kTileRows = 128;  // rows a block: 8 warps x 16
+constexpr int kTileThreads = kTileRows / 16 * 32;
+
+// Columns a tile: 128, or 64 where four 128-column buffers would pass the
+// 48 KB of static shared memory (RC = 16 with DMAX = 8).
+template <int RC, int DMAX>
+__host__ __device__ constexpr int tile_cols() { return RC == 16 && DMAX == 8 ? 64 : 128; }
+
+// Blocks per SM the register budget is set for: 65,536 / (256 * 3) = 85
+// registers a thread, so the 391 blocks of N = 50,000 are resident at once;
+// 2 where the 2 RC accumulators and 2 DMAX coordinates pass 26 (RC = 16, or
+// RC = 9 with DMAX = 8), which spill at 80.
+constexpr int tile_min_blocks(int rc, int dmax) { return 2 * (rc + dmax) > 26 ? 2 : 3; }
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The family's constant, folded into the coordinates: with x' = c x on
+// both sides (one rounding each, never fused into an FMA, so equal points
+// stay equal and the diagonal's r2 is exactly 0), r2' = c^2 r2 and exp(-a)
+// = ex2(-a log2 e) needs no multiply an entry: RBF c^2 = log2(e) / 2, so
+// K = v ex2(-r2'); Matern32 and 52 c = sqrt(3) log2(e) and sqrt(5) log2(e),
+// Exponential c = log2(e), each on r' = c r = sqrt(r2' + 1e-30), s = r' ln 2.
+template <int FAM>
+constexpr float kCoordScale = FAM == 0 ? 0.84932180028801904f    // sqrt(log2(e) / 2)
+                              : FAM == 1 ? 2.4988211106473432f  // sqrt(3) log2(e)
+                              : FAM == 2 ? 3.2259641822295610f  // sqrt(5) log2(e)
+                                         : 1.4426950408889634f; // log2(e)
+constexpr float kLn2 = 0.69314718055994531f;
+
+// K from the scaled r2' with one ex2.approx on the SFU, the multiply by v
+// last; r' as k_of_r2's r.
+template <int FAM>
+__device__ __forceinline__ float k_of_r2_fast(float r2, float v) {
+  if (FAM == 0) return v * ex2_approx(-r2);
+  const float r = sqrt_approx(r2 + 1e-30f);
+  const float e = ex2_approx(-r);
+  if (FAM == 1) return v * (fmaf(r, kLn2, 1.0f) * e);
+  if (FAM == 2) return v * (fmaf(r, fmaf(r, kLn2 * kLn2 / 3.0f, kLn2), 1.0f) * e);
+  return v * e;
+}
+
+// Copy `count` floats from global `src` (16-byte aligned) to shared `dst`,
+// 16 bytes a thread and chunk with cp.async, `kMax` floats at most; a last
+// partial chunk reads only its own bytes and zero-fills the rest.
+template <int kMax>
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int count, int tid) {
+#pragma unroll
+  for (int it = 0; it < (kMax / 4 + kTileThreads - 1) / kTileThreads; ++it) {
+    const int c = tid + it * kTileThreads;
+    if (4 * c < count) {
+      const int bytes = min(16, 4 * (count - 4 * c));
+      const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + 4 * c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                   :: "r"(s), "l"(src + 4 * c), "r"(bytes) : "memory");
+    }
+  }
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// V's row stride in the re-laid tile: RC padded to a multiple of 4 (one at
+// RC = 1), so a thread reads a row with 16-byte loads, and to 4 past a
+// multiple of 8, so the four rows a warp reads at once (t = 0..3) fall in
+// four different quarters of the 32 banks.
+template <int RC>
+__host__ __device__ constexpr int v_stride() {
+  return RC == 1 ? 1 : ((RC + 3) / 4 * 4) % 8 == 0 ? (RC + 3) / 4 * 4 + 4 : (RC + 3) / 4 * 4;
+}
+
+// Re-lay one landed tile (`cols` valid columns) for the compute. Each
+// thread's share is the same in every tile.
+template <int RC, int DMAX>
+__device__ __forceinline__ void relayout(float* __restrict__ cx, float* __restrict__ cv,
+                                         const float* __restrict__ rx,
+                                         const float* __restrict__ rv, float scale, int cols,
+                                         int d, int r, int tid) {
+  constexpr int kX = tile_cols<RC, DMAX>() * DMAX;
+#pragma unroll
+  for (int it = 0; it < (kX + kTileThreads - 1) / kTileThreads; ++it) {
+    const int i = tid + it * kTileThreads;
+    const int j = i / DMAX;
+    const int k = i % DMAX;
+    if (kX % kTileThreads == 0 || i < kX)
+      cx[i] = (j < cols && k < d) ? __fmul_rn(scale, rx[j * d + k]) : 0.0f;
+  }
+  constexpr int kStride = v_stride<RC>();
+  constexpr int kV = tile_cols<RC, DMAX>() * kStride;
+#pragma unroll
+  for (int it = 0; it < (kV + kTileThreads - 1) / kTileThreads; ++it) {
+    const int i = tid + it * kTileThreads;
+    const int j = i / kStride;
+    const int c = i % kStride;
+    if (kV % kTileThreads == 0 || i < kV) cv[i] = (j < cols && c < r) ? rv[j * r + c] : 0.0f;
+  }
+}
+
+template <int FAM, int RC, int DMAX>
+__global__ void __launch_bounds__(kTileThreads, tile_min_blocks(RC, DMAX))
+gram_matvec_tile_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
+                        const float* __restrict__ vmat, const float* __restrict__ var,
+                        float* __restrict__ out, int64_t n, int64_t m, int d, int r) {
+  constexpr int kCols = tile_cols<RC, DMAX>();
+  constexpr int kSteps = kCols / 8;
+  constexpr int kStride = v_stride<RC>();
+  constexpr float scale = kCoordScale<FAM>;
+  __shared__ __align__(16) float rx[2][kCols * DMAX];    // raw X2 rows, stride d
+  __shared__ __align__(16) float rv[2][kCols * RC];      // raw V rows, stride r
+  __shared__ __align__(16) float cx[2][kCols * DMAX];    // X2 rows, stride DMAX
+  __shared__ __align__(16) float cv[2][kCols * kStride]; // V rows, stride kStride
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int64_t row_a = static_cast<int64_t>(blockIdx.x) * kTileRows + (tid / 32) * 16 + g;
+  const int64_t row_b = row_a + 8;
+  const float vv = var[0];
+
+  float xa[DMAX], xb[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    xa[k] = (row_a < n && k < d) ? __fmul_rn(scale, xs[row_a * d + k]) : 0.0f;
+    xb[k] = (row_b < n && k < d) ? __fmul_rn(scale, xs[row_b * d + k]) : 0.0f;
+  }
+  float acc[2 * RC];  // rows a and b, partial over this thread's columns
+#pragma unroll
+  for (int c = 0; c < 2 * RC; ++c) acc[c] = 0.0f;
+
+  const int64_t tiles = (m + kCols - 1) / kCols;
+  auto valid = [&](int64_t tile) {  // the tile's columns inside M
+    const int64_t left = m - tile * kCols;
+    return static_cast<int>(left < kCols ? left : kCols);
+  };
+  auto issue = [&](int64_t tile) {
+    const int64_t col0 = tile * kCols;
+    const int cols = valid(tile);
+    copy_async<kCols * DMAX>(rx[tile % 2], x2s + col0 * d, cols * d, tid);
+    copy_async<kCols * RC>(rv[tile % 2], vmat + col0 * r, cols * r, tid);
+    copy_async_commit();
+  };
+  if (tiles > 0) {
+    issue(0);
+    copy_async_wait();
+    __syncthreads();
+    relayout<RC, DMAX>(cx[0], cv[0], rx[0], rv[0], scale, valid(0), d, r, tid);
+    if (tiles > 1) issue(1);
+  }
+  for (int64_t tile = 0; tile < tiles; ++tile) {
+    const int cur = static_cast<int>(tile % 2);
+    // tile + 1 has landed; every thread is done with tile - 1's compute
+    // buffers and with tile's raw buffers
+    copy_async_wait();
+    __syncthreads();
+    if (tile + 1 < tiles)
+      relayout<RC, DMAX>(cx[cur ^ 1], cv[cur ^ 1], rx[cur ^ 1], rv[cur ^ 1], scale,
+                         valid(tile + 1), d, r, tid);
+    if (tile + 2 < tiles) issue(tile + 2);
+    const float4* xt = reinterpret_cast<const float4*>(cx[cur]);
+    const float* vt = cv[cur];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      float ya[DMAX], yb[DMAX];  // columns 8 s + t and 8 s + t + 4
+#pragma unroll
+      for (int k = 0; k < DMAX / 4; ++k) {
+        const float4 p = xt[(s * 8 + t) * (DMAX / 4) + k];
+        const float4 q = xt[(s * 8 + t + 4) * (DMAX / 4) + k];
+        ya[4 * k] = p.x; ya[4 * k + 1] = p.y; ya[4 * k + 2] = p.z; ya[4 * k + 3] = p.w;
+        yb[4 * k] = q.x; yb[4 * k + 1] = q.y; yb[4 * k + 2] = q.z; yb[4 * k + 3] = q.w;
+      }
+      float k[4];  // (a, 8 s + t), (b, 8 s + t), (a, 8 s + t + 4), (b, 8 s + t + 4)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* x = (q & 1) ? xb : xa;
+        const float* y = (q & 2) ? yb : ya;
+        float r2 = 0.0f;
+#pragma unroll
+        for (int e = 0; e < DMAX; ++e) {
+          const float diff = x[e] - y[e];
+          r2 = fmaf(diff, diff, r2);
+        }
+        k[q] = k_of_r2_fast<FAM>(r2, vv);
+      }
+      float va[kStride], vb[kStride];  // V rows 8 s + t and 8 s + t + 4
+      if constexpr (kStride % 4 == 0) {
+        const float4* pa = reinterpret_cast<const float4*>(vt) + (s * 8 + t) * (kStride / 4);
+#pragma unroll
+        for (int c = 0; c < (RC + 3) / 4; ++c) {
+          const float4 p = pa[c];
+          const float4 q = pa[kStride + c];
+          va[4 * c] = p.x; va[4 * c + 1] = p.y; va[4 * c + 2] = p.z; va[4 * c + 3] = p.w;
+          vb[4 * c] = q.x; vb[4 * c + 1] = q.y; vb[4 * c + 2] = q.z; vb[4 * c + 3] = q.w;
+        }
+      } else {
+        va[0] = vt[s * 8 + t];
+        vb[0] = vt[s * 8 + t + 4];
+      }
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        acc[c] = fmaf(k[0], va[c], acc[c]);
+        acc[RC + c] = fmaf(k[1], va[c], acc[RC + c]);
+        acc[c] = fmaf(k[2], vb[c], acc[c]);
+        acc[RC + c] = fmaf(k[3], vb[c], acc[RC + c]);
+      }
+    }
+  }
+
+  // the four lanes of a row group hold column partial sums: add them
+#pragma unroll
+  for (int c = 0; c < 2 * RC; ++c) {
+    acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 1);
+    acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 2);
+  }
+#pragma unroll
+  for (int c = 0; c < RC; ++c) {
+    if (c % 4 != t || c >= r) continue;
+    if (row_a < n) out[row_a * r + c] = acc[c];
+    if (row_b < n) out[row_b * r + c] = acc[RC + c];
+  }
+}
+
+template <int FAM, int RC, int DMAX>
+int launch_tile(const float* xs, const float* x2s, const float* v, const float* vmat,
+                float* out, int64_t n, int64_t m, int d, int r, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((n + kTileRows - 1) / kTileRows));
+  gram_matvec_tile_kernel<FAM, RC, DMAX><<<grid, kTileThreads, 0, stream>>>(
+      xs, x2s, vmat, v, out, n, m, d, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register-tile kernel's R chunk: 1, 9 or 16, the smallest that holds R.
+template <int FAM, int DMAX>
+int matvec_tile(const float* xs, const float* x2s, const float* v, const float* vmat,
+                float* out, int64_t n, int64_t m, int d, int r, cudaStream_t s) {
+  if (r == 1) return launch_tile<FAM, 1, DMAX>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  if (r <= 9) return launch_tile<FAM, 9, DMAX>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  return launch_tile<FAM, 16, DMAX>(xs, x2s, v, vmat, out, n, m, d, r, s);
+}
+
 template <int FAM, int RC>
 int launch_matvec(const float* xs, const float* x2s, const float* v, const float* vmat,
                   float* out, int64_t n, int64_t m, int d, int r, cudaStream_t stream) {
@@ -475,12 +753,15 @@ int launch_matvec(const float* xs, const float* x2s, const float* v, const float
   return static_cast<int>(cudaGetLastError());
 }
 
-// The R chunk: 1 for a vector, else the smaller of 9 and 16 that holds R;
-// above 16, chunks of kWide through the wide kernel. Nine is the CG width
-// of the N = 50k configuration (1 target + 8 probes).
+// D <= 8 and R <= 16: the register-tile kernel. Otherwise the chunk
+// kernel, its R chunk 1 for a vector, else the smaller of 9 and 16 that
+// holds R; above 16, chunks of kWide through the wide kernel. Nine is the
+// CG width of the N = 50k configuration (1 target + 8 probes).
 template <int FAM>
 int matvec_family(const float* xs, const float* x2s, const float* v, const float* vmat,
                   float* out, int64_t n, int64_t m, int d, int r, cudaStream_t s) {
+  if (d <= 4 && r <= 16) return matvec_tile<FAM, 4>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  if (d <= 8 && r <= 16) return matvec_tile<FAM, 8>(xs, x2s, v, vmat, out, n, m, d, r, s);
   if (r <= 1) return launch_matvec<FAM, 1>(xs, x2s, v, vmat, out, n, m, d, r, s);
   if (r <= 9) return launch_matvec<FAM, 9>(xs, x2s, v, vmat, out, n, m, d, r, s);
   if (r <= 16) return launch_matvec<FAM, 16>(xs, x2s, v, vmat, out, n, m, d, r, s);
@@ -511,7 +792,8 @@ int moments_family(const float* xs, const float* g, const float* vmat, const flo
 // accepted); an unknown family returns cudaErrorInvalidValue.
 extern "C" {
 
-// xs (n, d), x2s (m, d), vmat (m, r), out (n, r); all float32, row-major.
+// xs (n, d), x2s (m, d), vmat (m, r), out (n, r); all float32, row-major;
+// x2s and vmat 16-byte aligned.
 int gram_matvec_fused_f32(const float* xs, const float* x2s, const float* v,
                           const float* vmat, float* out, int64_t n, int64_t m, int d,
                           int r, int family, void* stream) {

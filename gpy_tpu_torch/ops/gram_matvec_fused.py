@@ -15,7 +15,9 @@ Like the reference, both kernels compute in float32 (X / lengthscale and V
 are cast) and the wrapper adds noise * V and casts back to V's dtype. The
 accum modes of the reference ("exact" 6-pass, "f32x3" 3-pass, "fast"
 1-pass bf16 on the TPU's matrix unit) all run as float32 FFMA here, which is
-at least as accurate as each; the string is still validated.
+at least as accurate as each; the string is still validated. (A 3xTF32
+contraction on the tensor cores for "f32x3" and "fast" was measured and
+dropped: PERF.md, the B5 findings.)
 
 Deviation: the reference forms r2 by the expansion |x|^2 + |x'|^2 - 2 x.x'
 above D = 8 (its :178-184); here every D sums direct differences, so a
@@ -175,9 +177,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _aligned16(t):
+    """t when its data is 16-byte aligned, else a copy (which is)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0):
     """The B5 kernel on scaled float32 inputs: K_family(Xs, X2s) @ V, one
-    launch on the current stream."""
+    launch on the current stream. X2s and V are copied when their data is
+    not 16-byte aligned (the kernel copies their tiles 16 bytes at a time)."""
     global matvec_launches
     fn = "stationary_gram_matvec_cuda"
     _check(fn, [("Xs", Xs), ("X2s", X2s), ("V", V), ("v", v)], Xs)
@@ -197,6 +205,7 @@ def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0):
     out = torch.empty((N, R), dtype=torch.float32, device=Xs.device)
     if N == 0 or R == 0:
         return out
+    X2s, V = _aligned16(X2s), _aligned16(V)
     lib = _lib()
     with torch.cuda.device(Xs.device):
         rc = lib.gram_matvec_fused_f32(Xs.data_ptr(), X2s.data_ptr(), v.data_ptr(), V.data_ptr(),

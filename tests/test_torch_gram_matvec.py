@@ -218,3 +218,14 @@ def test_fused_diff_skips_dV_for_a_detached_V(monkeypatch):
     torch.autograd.grad(y.sum(), [v, ls])
     assert len(calls) == 1
 
+
+def test_cuda_wrapper_copies_unaligned_views():
+    """B5 copies X2 and V tiles 16 bytes at a time: a view whose data is
+    not 16-byte aligned reaches it as an aligned copy, an aligned tensor as
+    itself."""
+    base = torch.arange(10 * 9, dtype=torch.float32).reshape(10, 9)
+    view = base[1:]  # 36 bytes past an aligned allocation
+    assert view.data_ptr() % 16 != 0
+    got = tf._aligned16(view)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, view)
+    assert tf._aligned16(base) is base
