@@ -20,7 +20,9 @@ Phases, each printing one JSON line:
                 the four families, the three accum modes and nine shapes
                 (and once on unaligned views),
                 and its gradient moments (B6, through the autograd
-                Function) against autograd of the plain twin;
+                Function) against autograd of the plain twin for the four
+                families at D = 1, 4, 8, 12 by R = 1, 9, 16 and two ragged
+                N (and on unaligned views);
   8. iterative -- the iterative exact-GP main path at bench.py's N=50,000
                 D=4 configuration in float32, two models: fused=True,
                 materialize=False (B5/B6) and the default materialized
@@ -31,7 +33,8 @@ Phases, each printing one JSON line:
                 same probes as reference, and the exact NLML (float64
                 Cholesky) at the start and after optimize;
   9. iterative_times -- B5 at N=50,000 by the profiler's device time and
-                by CUDA events (R = 9, 16, 256, 1), B6 by events, each
+                by CUDA events (R = 9, 16, 256, 1), B6 (and its reduce) by
+                the profiler's device time and by events, each
                 beside its plain twin and bounds, each kernel's error there
                 checked against its plain twin, NLML+gradient and predict
                 times of both models, the materialized matvec's matmul;
@@ -430,8 +433,9 @@ def check_fused_moments(fm, family, D, N=4096, R=9):
     comparison measures the kernel and not float32 cancellation."""
     import torch
 
-    X, _, V, ls, v = fused_inputs(N, None, D, R, seed=100 + D + family, positive=True)
-    _, _, G, _, _ = fused_inputs(N, None, D, R, seed=200 + D + family, positive=True)
+    shift = D + family + 32 * (R % 9) + (4096 - N)  # N=4096, R=9: the original seeds
+    X, _, V, ls, v = fused_inputs(N, None, D, R, seed=100 + shift, positive=True)
+    _, _, G, _, _ = fused_inputs(N, None, D, R, seed=200 + shift, positive=True)
     noise = torch.full((N,), 0.1, dtype=torch.float32, device="cuda")
 
     def grads(use_kernel):
@@ -451,14 +455,16 @@ def check_fused_moments(fm, family, D, N=4096, R=9):
         rel = float((a - b).abs().max() / b.abs().max())
         rels[lab] = rel
         check(math.isfinite(rel) and rel <= FUSED_BWD_TOL,
-              f"gram_moments family {family} D={D}: {lab} rel err {rel} > {FUSED_BWD_TOL}")
+              f"gram_moments family {family} N={N} D={D} R={R}: {lab} rel err {rel} "
+              f"> {FUSED_BWD_TOL}")
     return rels
 
 
 def check_fused_unaligned(fm):
-    """B5 on X2s and V whose data are not 16-byte aligned (row-offset views
-    at 12 and 36 bytes): the wrapper copies them before the kernel's
-    16-byte copies read them."""
+    """B5 and B6 on X2s and V whose data are not 16-byte aligned (row-offset
+    views at 12 and 36 bytes): the wrappers copy them before the kernels'
+    16-byte copies read them. B6 (X2s as its X) is held to the float64
+    twin."""
     import numpy as np
     import torch
 
@@ -473,7 +479,18 @@ def check_fused_unaligned(fm):
     ref = fm.stationary_gram_matvec_plain(Xs, X2s, V, v, 0)
     rel = float((out - ref).abs().max() / ref.abs().max())
     check(rel <= FUSED_FWD_TOL, f"gram_matvec_fused unaligned views: rel err {rel}")
-    return rel
+    G = Vb[:-1]
+    mom = fm.gram_moments_cuda(X2s, G, V, v, 0)
+    ref = fm.gram_moments_plain(X2s.double(), G.double(), V.double(), v.double(), 0)
+    mrel = float((mom - ref).abs().max() / ref.abs().max())
+    check(mrel <= FUSED_BWD_TOL, f"gram_moments unaligned views: rel err {mrel}")
+    return {"gram_matvec_fused": rel, "gram_moments": mrel}
+
+
+# B6's shapes (N, D, R): the register-tile kernel at D = 1, 4, 8 (DMAX 4
+# and 8) by its R chunks 1, 9, 16, the chunk kernel at D = 12, and ragged N
+MOMENT_SHAPES = [(4096, D, R) for D in (1, 4, 8, 12) for R in (1, 9, 16)] + [
+    (2047, 4, 9), (2047, 8, 16)]
 
 
 def run_fused_checks(fm):
@@ -491,8 +508,9 @@ def run_fused_checks(fm):
                 rel, err = check_fused_matvec(fm, fam, accum, shape)
                 worst = max(worst, err)
                 fwd.append({"family": fname, "accum": accum, "shape": shape[0], "rel_err": rel})
-    bwd = [{"family": fname, "D": D, "rel_err": check_fused_moments(fm, fam, D)}
-           for fname, fam in FAMILIES.items() for D in (4, 12)]
+    bwd = [{"family": fname, "N": N, "D": D, "R": R,
+            "rel_err": check_fused_moments(fm, fam, D, N=N, R=R)}
+           for fname, fam in FAMILIES.items() for N, D, R in MOMENT_SHAPES]
     return {"phase": "kernels_fused", "gram_matvec_fused": fwd, "fwd_tol": FUSED_FWD_TOL,
             "unaligned_views_rel_err": check_fused_unaligned(fm),
             "gram_moments": bwd, "bwd_tol": FUSED_BWD_TOL,
@@ -719,8 +737,11 @@ def fused_matvec_bounds(N, M, D, R):
             "bound_tc_ms": tc[tc_by] * 1e3, "bound_tc_by": tc_by, "bytes_ms": t_bytes * 1e3}
 
 
-# the main path's B5 instance: RBF, R chunk 9, DMAX 4
+# the main path's B5 and B6 instances: RBF, R chunk 9, DMAX 4; B6's kernel
+# by the profiler's name
 MAIN_B5_INSTANCE = "gram_matvec_tile_kernelILi0ELi9ELi4E"
+MAIN_B6_INSTANCE = "gram_moments_tile_kernelILi0ELi9ELi4E"
+B6_KERNEL = "gram_moments_tile_kernel<"
 
 
 def ptxas_of(report, instance):
@@ -774,13 +795,22 @@ def time_fused(fm, R, reps, plain_reps):
 
 
 def time_moments(fm, R=9):
+    """B6 at N=50,000, D=4: the profiler's device time per launch of its
+    register-tile kernel (`ms`) and of its reduce (`reduce_ms`) beside the
+    event time of the two (`event_ms`), the plain twin's time, its error
+    against the float64 twin and its bound."""
     import torch
 
     X, _, V, ls, v = fused_inputs(ITER_N, None, ITER_D, R, seed=12)
     _, _, G, _, _ = fused_inputs(ITER_N, None, ITER_D, R, seed=13)
     Xs = (X / ls).contiguous()
     v1 = v.reshape(1)
-    ms = cuda_ms(lambda: fm.gram_moments_cuda(Xs, G, V, v1, 0), reps=10, warmup=1)
+
+    def run():
+        return fm.gram_moments_cuda(Xs, G, V, v1, 0)
+
+    ms, reduce_ms, _, _ = device_ms(run, reps=10, warmup=1, kernel=B6_KERNEL)
+    event_ms = cuda_ms(run, reps=10, warmup=1)
     plain_ms = cuda_ms(lambda: fm.gram_moments_plain(Xs, G, V, v1, 0), reps=2, warmup=1)
     a = fm.gram_moments_cuda(Xs, G, V, v1, 0)
     check(torch.equal(a, fm.gram_moments_cuda(Xs, G, V, v1, 0)),
@@ -792,7 +822,8 @@ def time_moments(fm, R=9):
     check(rel <= FUSED_BWD_TOL_50K,
           f"gram_moments N={ITER_N} R={R}: rel err {rel} vs float64 plain > {FUSED_BWD_TOL_50K}")
     bound_ms, bound_by = gram_moments_bound(ITER_N, ITER_D, R)
-    return {"N": ITER_N, "D": ITER_D, "R": R, "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
+    return {"N": ITER_N, "D": ITER_D, "R": R, "dtype": "float32", "ms": ms,
+            "reduce_ms": reduce_ms, "event_ms": event_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "repeats_bit_for_bit": True,
             "max_abs_err_vs_f64_plain": err, "rel_err": rel, "rel_tol": FUSED_BWD_TOL_50K,
             "max_elementwise_rel_err_vs_f64_plain": float(((a - b).abs() / b.abs()).max()),
@@ -1456,9 +1487,10 @@ def main() -> int:
         "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:268",
         "launches": iter_rec["fused"]["launches"]["gram_moments"],
         "max_abs_err": mom["max_abs_err_vs_f64_plain"], "main_path_rel_err": mom["rel_err"],
-        "main_path_rel_tol": FUSED_BWD_TOL_50K, "ms": mom["ms"],
+        "main_path_rel_tol": FUSED_BWD_TOL_50K, "shape": f"N={ITER_N}, D={ITER_D}, R=9",
+        "ms": mom["ms"], "reduce_ms": mom["reduce_ms"], "event_ms": mom["event_ms"],
         "plain_ms": mom["plain_ms"], "bound_ms": mom["bound_ms"], "bound_by": mom["bound_by"],
-        "library_ms": None,
+        "ptxas": ptxas_of(reports["gram_matvec_fused"], MAIN_B6_INSTANCE), "library_ms": None,
     }, {
         "name": "block_chol", "route": "cuda", "source": "gpy_tpu_torch/csrc/block_chol.cu",
         "replaces": "gpy_tpu/ops/pallas_chol.py:123 (_block_kernel_v2) and :175 "

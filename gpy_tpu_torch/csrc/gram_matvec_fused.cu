@@ -44,13 +44,16 @@
 // result does not depend on scheduling. Every kernel here contracts in
 // float32 FFMA, whatever the reference's accum mode.
 //
-// B6 design: the same tile walk, square. Per tile a thread forms its 4x4
-// block of W (R staged 16 at a time), r2, K and -dK/dr2, then the moments
-// of one 16-dimension chunk (grid.y walks the chunks, so any D works; r2
-// is recomputed per chunk). Each thread sums its 16 entries in float and
-// adds the sum to float64 accumulators; the block reduces them in a fixed
-// order into one partial row, and a second one-block kernel sums the rows
-// in a fixed order in float64. The gradient repeats bit for bit.
+// B6 for D <= 8 and R <= 16 (the main path) is the register-tile kernel
+// gram_moments_tile_kernel below, on B5's column walk. The chunk kernel
+// takes the rest, on the chunk kernel's tile walk, square: per tile a
+// thread forms its 4x4 block of W (R staged 16 at a time), r2, K and
+// -dK/dr2, then the moments of one 16-dimension chunk (grid.y walks the
+// chunks, so any D works; r2 is recomputed per chunk). In both, each thread
+// sums a tile's entries in float and adds the sum to float64 accumulators;
+// the block reduces them in a fixed order into one partial row, and a
+// second one-block kernel sums the rows in a fixed order in float64. The
+// gradient repeats bit for bit.
 //
 // Exponential's -dK/dr2 = v exp(-r) / (2r) is ~5e14 v at r = sqrt(1e-30):
 // finite, and it multiplies an exactly-zero dx^2 on the diagonal. The build
@@ -329,6 +332,29 @@ gram_matvec_wide_kernel(const float* __restrict__ xs, const float* __restrict__ 
   }
 }
 
+// Sum each of the block's kBlock threads' NQ values into row[0, NQ) in a
+// fixed order (warp shuffles, then warps 0, 1, ... in turn), so a B6
+// kernel's partial rows repeat bit for bit.
+template <int NQ>
+__device__ __forceinline__ void block_sum(double (&mom)[NQ], double* __restrict__ row, int tid) {
+  __shared__ double sred[kBlock / 32][NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mom[q] += __shfl_xor_sync(0xffffffffu, mom[q], off);
+  const int warp = tid / 32;
+  if (tid % 32 == 0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) sred[warp][q] = mom[q];
+  }
+  __syncthreads();
+  if (tid < NQ) {
+    double s = 0.0;
+    for (int wi = 0; wi < kBlock / 32; ++wi) s += sred[wi][tid];
+    row[tid] = s;
+  }
+}
+
 template <int FAM>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 gram_moments_kernel(const float* __restrict__ xs, const float* __restrict__ g,
@@ -336,7 +362,6 @@ gram_moments_kernel(const float* __restrict__ xs, const float* __restrict__ g,
                     double* __restrict__ partial, int64_t n, int d, int r) {
   __shared__ float sa[kChunk][kTile + 1];
   __shared__ float sb[kChunk][kTile + 1];
-  __shared__ double sred[kBlock / 32][kMomStride];
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -436,28 +461,16 @@ gram_moments_kernel(const float* __restrict__ xs, const float* __restrict__ g,
     }
   }
 
-  // block sum in a fixed order: warp shuffles, then warp 0..7 in turn
-#pragma unroll
-  for (int q = 0; q < kMomStride; ++q)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mom[q] += __shfl_xor_sync(0xffffffffu, mom[q], off);
-  const int warp = tid / 32;
-  if (tid % 32 == 0) {
-#pragma unroll
-    for (int q = 0; q < kMomStride; ++q) sred[warp][q] = mom[q];
-  }
-  __syncthreads();
-  if (tid < kMomStride) {
-    double s = 0.0;
-    for (int wi = 0; wi < kBlock / 32; ++wi) s += sred[wi][tid];
-    partial[(static_cast<int64_t>(blockIdx.x) * nchunks + blockIdx.y) * kMomStride + tid] = s;
-  }
+  block_sum(mom, partial + (static_cast<int64_t>(blockIdx.x) * nchunks + blockIdx.y) * kMomStride,
+            tid);
 }
 
-// out[0] = sum_t s0_t / v; out[1 + dd] = sum_t m_t,dd; rows summed in order.
+// out[0] = sum_t s0_t / v; out[1 + dd] = mscale * sum_t m_t,dd (mscale: 1
+// for the chunk kernel, the family's folded constant for the register-tile
+// kernel); rows summed in order.
 __global__ void gram_moments_reduce(const double* __restrict__ partial,
                                     const float* __restrict__ var, double* __restrict__ out,
-                                    int tiles, int nchunks, int d) {
+                                    int tiles, int nchunks, int d, double mscale) {
   const int q = threadIdx.x;
   if (q > d) return;
   const int chunk = q == 0 ? 0 : (q - 1) / kChunk;
@@ -465,7 +478,7 @@ __global__ void gram_moments_reduce(const double* __restrict__ partial,
   double s = 0.0;
   for (int t = 0; t < tiles; ++t)
     s += partial[(static_cast<int64_t>(t) * nchunks + chunk) * kMomStride + slot];
-  out[q] = q == 0 ? s / static_cast<double>(var[0]) : s;
+  out[q] = q == 0 ? s / static_cast<double>(var[0]) : s * mscale;
 }
 
 // B5 for D <= 8 and R <= 16 (the main path: D = 4, R = 9), redesigned for
@@ -512,6 +525,12 @@ __device__ __forceinline__ float ex2_approx(float x) {
 __device__ __forceinline__ float sqrt_approx(float x) {
   float y;
   asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -601,38 +620,29 @@ __device__ __forceinline__ void relayout(float* __restrict__ cx, float* __restri
   }
 }
 
-template <int FAM, int RC, int DMAX>
-__global__ void __launch_bounds__(kTileThreads, tile_min_blocks(RC, DMAX))
-gram_matvec_tile_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
-                        const float* __restrict__ vmat, const float* __restrict__ var,
-                        float* __restrict__ out, int64_t n, int64_t m, int d, int r) {
+// The column walk of the register-tile kernels (B5 and B6). The block's
+// threads walk the M columns of X2 and V in tiles of kCols: the raw rows of
+// tile j + 1 are copied into shared memory with 16-byte cp.async (the
+// ragged last tile zero-filled) while tile j computes, and each tile is
+// re-laid once, after it lands. One barrier a tile. For each 8-column step
+// of a tile, step(ya, yb, va, vb) gets the re-laid coordinates (DMAX) and V
+// rows (v_stride) of columns 8 s + t and 8 s + t + 4, t = lane % 4; after
+// each tile, tile_end().
+template <int RC, int DMAX, class Step, class TileEnd>
+__device__ __forceinline__ void walk_tiles(const float* __restrict__ x2s,
+                                           const float* __restrict__ vmat, float scale,
+                                           int64_t m, int d, int r, Step&& step,
+                                           TileEnd&& tile_end) {
   constexpr int kCols = tile_cols<RC, DMAX>();
   constexpr int kSteps = kCols / 8;
   constexpr int kStride = v_stride<RC>();
-  constexpr float scale = kCoordScale<FAM>;
   __shared__ __align__(16) float rx[2][kCols * DMAX];    // raw X2 rows, stride d
   __shared__ __align__(16) float rv[2][kCols * RC];      // raw V rows, stride r
   __shared__ __align__(16) float cx[2][kCols * DMAX];    // X2 rows, stride DMAX
   __shared__ __align__(16) float cv[2][kCols * kStride]; // V rows, stride kStride
 
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int64_t row_a = static_cast<int64_t>(blockIdx.x) * kTileRows + (tid / 32) * 16 + g;
-  const int64_t row_b = row_a + 8;
-  const float vv = var[0];
-
-  float xa[DMAX], xb[DMAX];
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    xa[k] = (row_a < n && k < d) ? __fmul_rn(scale, xs[row_a * d + k]) : 0.0f;
-    xb[k] = (row_b < n && k < d) ? __fmul_rn(scale, xs[row_b * d + k]) : 0.0f;
-  }
-  float acc[2 * RC];  // rows a and b, partial over this thread's columns
-#pragma unroll
-  for (int c = 0; c < 2 * RC; ++c) acc[c] = 0.0f;
-
+  const int t = tid % 4;
   const int64_t tiles = (m + kCols - 1) / kCols;
   auto valid = [&](int64_t tile) {  // the tile's columns inside M
     const int64_t left = m - tile * kCols;
@@ -674,19 +684,6 @@ gram_matvec_tile_kernel(const float* __restrict__ xs, const float* __restrict__ 
         ya[4 * k] = p.x; ya[4 * k + 1] = p.y; ya[4 * k + 2] = p.z; ya[4 * k + 3] = p.w;
         yb[4 * k] = q.x; yb[4 * k + 1] = q.y; yb[4 * k + 2] = q.z; yb[4 * k + 3] = q.w;
       }
-      float k[4];  // (a, 8 s + t), (b, 8 s + t), (a, 8 s + t + 4), (b, 8 s + t + 4)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float* x = (q & 1) ? xb : xa;
-        const float* y = (q & 2) ? yb : ya;
-        float r2 = 0.0f;
-#pragma unroll
-        for (int e = 0; e < DMAX; ++e) {
-          const float diff = x[e] - y[e];
-          r2 = fmaf(diff, diff, r2);
-        }
-        k[q] = k_of_r2_fast<FAM>(r2, vv);
-      }
       float va[kStride], vb[kStride];  // V rows 8 s + t and 8 s + t + 4
       if constexpr (kStride % 4 == 0) {
         const float4* pa = reinterpret_cast<const float4*>(vt) + (s * 8 + t) * (kStride / 4);
@@ -701,15 +698,58 @@ gram_matvec_tile_kernel(const float* __restrict__ xs, const float* __restrict__ 
         va[0] = vt[s * 8 + t];
         vb[0] = vt[s * 8 + t + 4];
       }
-#pragma unroll
-      for (int c = 0; c < RC; ++c) {
-        acc[c] = fmaf(k[0], va[c], acc[c]);
-        acc[RC + c] = fmaf(k[1], va[c], acc[RC + c]);
-        acc[c] = fmaf(k[2], vb[c], acc[c]);
-        acc[RC + c] = fmaf(k[3], vb[c], acc[RC + c]);
-      }
+      step(ya, yb, va, vb);
     }
+    tile_end();
   }
+}
+
+template <int FAM, int RC, int DMAX>
+__global__ void __launch_bounds__(kTileThreads, tile_min_blocks(RC, DMAX))
+gram_matvec_tile_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
+                        const float* __restrict__ vmat, const float* __restrict__ var,
+                        float* __restrict__ out, int64_t n, int64_t m, int d, int r) {
+  constexpr float scale = kCoordScale<FAM>;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int t = lane % 4;
+  const int64_t row_a = static_cast<int64_t>(blockIdx.x) * kTileRows + (tid / 32) * 16 + lane / 4;
+  const int64_t row_b = row_a + 8;
+  const float vv = var[0];
+
+  float xa[DMAX], xb[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    xa[k] = (row_a < n && k < d) ? __fmul_rn(scale, xs[row_a * d + k]) : 0.0f;
+    xb[k] = (row_b < n && k < d) ? __fmul_rn(scale, xs[row_b * d + k]) : 0.0f;
+  }
+  float acc[2 * RC];  // rows a and b, partial over this thread's columns
+#pragma unroll
+  for (int c = 0; c < 2 * RC; ++c) acc[c] = 0.0f;
+
+  walk_tiles<RC, DMAX>(x2s, vmat, scale, m, d, r, [&](const float* ya, const float* yb,
+                                                      const float* va, const float* vb) {
+    float k[4];  // (a, 8 s + t), (b, 8 s + t), (a, 8 s + t + 4), (b, 8 s + t + 4)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* x = (q & 1) ? xb : xa;
+      const float* y = (q & 2) ? yb : ya;
+      float r2 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < DMAX; ++e) {
+        const float diff = x[e] - y[e];
+        r2 = fmaf(diff, diff, r2);
+      }
+      k[q] = k_of_r2_fast<FAM>(r2, vv);
+    }
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      acc[c] = fmaf(k[0], va[c], acc[c]);
+      acc[RC + c] = fmaf(k[1], va[c], acc[RC + c]);
+      acc[c] = fmaf(k[2], vb[c], acc[c]);
+      acc[RC + c] = fmaf(k[3], vb[c], acc[RC + c]);
+    }
+  }, [] {});
 
   // the four lanes of a row group hold column partial sums: add them
 #pragma unroll
@@ -723,6 +763,145 @@ gram_matvec_tile_kernel(const float* __restrict__ xs, const float* __restrict__ 
     if (row_a < n) out[row_a * r + c] = acc[c];
     if (row_b < n) out[row_b * r + c] = acc[RC + c];
   }
+}
+
+// B6 for D <= 8 and R <= 16 (the main path: D = 4, R = 9), redesigned for
+// Hopper on B5's walk (walk_tiles, square: the columns are X's own rows).
+// One 256-thread block owns 128 rows, 16 a warp; each thread keeps its two
+// rows' folded coordinates (DMAX, zero-padded) and G rows (RC, zero past R,
+// times v) in registers for the whole walk. Per entry (rows a, b by columns
+// 8 s + t, 8 s + t + 4): q_e = (x'_e - y'_e)^2 on the folded coordinates,
+// r2' = sum q_e, one ex2.approx, W' = v (G V')_ij in RC FFMA, then two
+// weights (moment_weights): wk = W' K / v into s0, and wn into
+// m_e += wn q_e (D FFMA; q_e is reused from r2', not recomputed). V is zero
+// past N, so W' is 0 there and the ragged tile needs no mask; padded rows
+// have G = 0. The folded constant (q_e = c^2 dx_e^2, and -dK/dr2 = f v e
+// p_n(r') for each family) is undone once, in float64, by the reduce:
+// m_d = mscale * sum wn q_d, mscale = moments_scale<FAM>(). Each thread sums
+// a tile's entries in float32 and adds them to D + 1 float64 sums after the
+// tile; block_sum and gram_moments_reduce add those in a fixed order, so the
+// result repeats bit for bit. W is FFMA, not the tensor cores: their
+// truncating sums failed the fused CG's NLML limit in B5 (PERF.md).
+//
+// Bound on an H100 SXM at N = 50,000, D = 4, R = 9: 2R + 6D + 5 = 47
+// operations an entry (gram_moments_bound), 1.75 ms; the kernel issues
+// about as many instructions an entry, so it is bound by issue.
+//
+// Blocks per SM the register budget is set for, from ptxas on sm_90a: RC = 1
+// at DMAX = 4 fits 3 (80 registers); RC = 9 and 16 at DMAX = 4 need 123-128
+// (at 3 blocks they spill), so 2; DMAX = 8 above RC = 1 spills even at 128,
+// so 1 (PERF.md, the B6 findings).
+constexpr int moments_min_blocks(int rc, int dmax) {
+  return rc == 1 && dmax == 4 ? 3 : dmax == 8 && rc > 1 ? 1 : 2;
+}
+
+// The weights of one entry from the folded r2' and w = v W, with e the
+// family's exponential factor ex2(-r2') or ex2(-r'), r' = c r (the guard
+// 1e-30 added to r2' as k_of_r2_fast adds it), s = r' ln 2:
+//   wk = w K / v: RBF w e; Matern32 w (1 + s) e; Matern52
+//   w (1 + s + s^2 / 3) e; Exponential w e;
+//   wn = w (-dK/dr2) / (f v): RBF and Matern32 w e, Matern52 w (1 + s) e,
+//   Exponential w e / r' (f = 1/2, 3/2, 5/6 and c/2; moments_scale).
+// On the diagonal q_e = 0 exactly, so Exponential's finite 1/r' = 1e15
+// multiplies 0.
+template <int FAM>
+__device__ __forceinline__ void moment_weights(float r2, float w, float& wk, float& wn) {
+  if (FAM == 0) {
+    wk = wn = w * ex2_approx(-r2);
+  } else if (FAM == 3) {
+    const float x = r2 + 1e-30f;
+    const float rs = rsqrt_approx(x);
+    wk = w * ex2_approx(-(x * rs));
+    wn = wk * rs;
+  } else {
+    const float r = sqrt_approx(r2 + 1e-30f);
+    const float we = w * ex2_approx(-r);
+    const float p = fmaf(r, kLn2, 1.0f);
+    if (FAM == 1) {
+      wk = we * p;
+      wn = we;
+    } else {
+      wk = we * fmaf(r, fmaf(r, kLn2 * kLn2 / 3.0f, kLn2), 1.0f);
+      wn = we * p;
+    }
+  }
+}
+
+// m_d = moments_scale * sum wn q_d: -dK/dr2 = f v e p_n, and q_d = c^2 dx_d^2
+// with c the float32 kCoordScale, so f / c^2; Exponential's 1/r = c / r'
+// leaves f c / c^2 = 1 / (2 c).
+template <int FAM>
+constexpr double moments_scale() {
+  constexpr double c = kCoordScale<FAM>;
+  return FAM == 0 ? 0.5 / (c * c) : FAM == 1 ? 1.5 / (c * c)
+         : FAM == 2 ? (5.0 / 6.0) / (c * c) : 0.5 / c;
+}
+
+template <int FAM, int RC, int DMAX>
+__global__ void __launch_bounds__(kTileThreads, moments_min_blocks(RC, DMAX))
+gram_moments_tile_kernel(const float* __restrict__ xs, const float* __restrict__ g,
+                         const float* __restrict__ vmat, const float* __restrict__ var,
+                         double* __restrict__ partial, int64_t n, int d, int r) {
+  constexpr float scale = kCoordScale<FAM>;
+  const int tid = threadIdx.x;
+  const int64_t row_a =
+      static_cast<int64_t>(blockIdx.x) * kTileRows + (tid / 32) * 16 + (tid % 32) / 4;
+  const int64_t row_b = row_a + 8;
+  const float vv = var[0];
+
+  float xa[DMAX], xb[DMAX], ga[RC], gb[RC];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    xa[k] = (row_a < n && k < d) ? __fmul_rn(scale, xs[row_a * d + k]) : 0.0f;
+    xb[k] = (row_b < n && k < d) ? __fmul_rn(scale, xs[row_b * d + k]) : 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < RC; ++c) {
+    ga[c] = (row_a < n && c < r) ? vv * g[row_a * r + c] : 0.0f;
+    gb[c] = (row_b < n && c < r) ? vv * g[row_b * r + c] : 0.0f;
+  }
+  double mom[DMAX + 1];  // [s0, m_1..m_DMAX] over the walk
+#pragma unroll
+  for (int q = 0; q <= DMAX; ++q) mom[q] = 0.0;
+  float s0 = 0.0f, mt[DMAX];  // the same over one tile
+#pragma unroll
+  for (int e = 0; e < DMAX; ++e) mt[e] = 0.0f;
+
+  walk_tiles<RC, DMAX>(xs, vmat, scale, n, d, r, [&](const float* ya, const float* yb,
+                                                     const float* va, const float* vb) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // (a, 8 s + t), (b, 8 s + t), (a, 8 s + t + 4), (b, ...)
+      const float* x = (q & 1) ? xb : xa;
+      const float* y = (q & 2) ? yb : ya;
+      const float* gq = (q & 1) ? gb : ga;
+      const float* vq = (q & 2) ? vb : va;
+      float dq[DMAX];  // q_e: r2' and the moments both read them
+      float r2 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < DMAX; ++e) {
+        const float diff = x[e] - y[e];
+        dq[e] = __fmul_rn(diff, diff);
+        r2 = e == 0 ? dq[0] : __fadd_rn(r2, dq[e]);
+      }
+      float w = gq[0] * vq[0];
+#pragma unroll
+      for (int c = 1; c < RC; ++c) w = fmaf(gq[c], vq[c], w);
+      float wk, wn;
+      moment_weights<FAM>(r2, w, wk, wn);
+      s0 += wk;
+#pragma unroll
+      for (int e = 0; e < DMAX; ++e) mt[e] = fmaf(wn, dq[e], mt[e]);
+    }
+  }, [&] {
+    mom[0] += s0;
+    s0 = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DMAX; ++e) {
+      mom[1 + e] += mt[e];
+      mt[e] = 0.0f;
+    }
+  });
+  block_sum(mom, partial + static_cast<int64_t>(blockIdx.x) * kMomStride, tid);
 }
 
 template <int FAM, int RC, int DMAX>
@@ -772,16 +951,41 @@ int matvec_family(const float* xs, const float* x2s, const float* v, const float
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int FAM, int RC, int DMAX>
+int launch_moments_tile(const float* xs, const float* g, const float* vmat, const float* v,
+                        double* partial, double* out, int64_t n, int d, int r,
+                        cudaStream_t s) {
+  const int tiles = static_cast<int>((n + kTileRows - 1) / kTileRows);
+  gram_moments_tile_kernel<FAM, RC, DMAX><<<tiles, kTileThreads, 0, s>>>(xs, g, vmat, v, partial,
+                                                                          n, d, r);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  gram_moments_reduce<<<1, 128, 0, s>>>(partial, v, out, tiles, 1, d, moments_scale<FAM>());
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register-tile kernel's R chunk, as matvec_tile's.
+template <int FAM, int DMAX>
+int moments_tile(const float* xs, const float* g, const float* vmat, const float* v,
+                 double* partial, double* out, int64_t n, int d, int r, cudaStream_t s) {
+  if (r == 1) return launch_moments_tile<FAM, 1, DMAX>(xs, g, vmat, v, partial, out, n, d, r, s);
+  if (r <= 9) return launch_moments_tile<FAM, 9, DMAX>(xs, g, vmat, v, partial, out, n, d, r, s);
+  return launch_moments_tile<FAM, 16, DMAX>(xs, g, vmat, v, partial, out, n, d, r, s);
+}
+
+// D <= 8 and R <= 16: the register-tile kernel; otherwise the chunk kernel.
 template <int FAM>
 int moments_family(const float* xs, const float* g, const float* vmat, const float* v,
                    double* partial, double* out, int64_t n, int d, int r, cudaStream_t s) {
+  if (d <= 4 && r <= 16) return moments_tile<FAM, 4>(xs, g, vmat, v, partial, out, n, d, r, s);
+  if (d <= 8 && r <= 16) return moments_tile<FAM, 8>(xs, g, vmat, v, partial, out, n, d, r, s);
   const int tiles = static_cast<int>((n + kTile - 1) / kTile);
   const int nchunks = (d + kChunk - 1) / kChunk;
   const dim3 block(kThreads, kThreads);
   gram_moments_kernel<FAM><<<dim3(tiles, nchunks), block, 0, s>>>(xs, g, vmat, v, partial, n, d, r);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  gram_moments_reduce<<<1, 128, 0, s>>>(partial, v, out, tiles, nchunks, d);
+  gram_moments_reduce<<<1, 128, 0, s>>>(partial, v, out, tiles, nchunks, d, 1.0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -807,8 +1011,10 @@ int gram_matvec_fused_f32(const float* xs, const float* x2s, const float* v,
   }
 }
 
-// xs (n, d), g and vmat (n, r) float32; partial holds
-// ceil(n / 64) * ceil(d / 16) * 17 doubles of scratch; out (d + 1,) float64.
+// xs (n, d), g and vmat (n, r) float32, xs and vmat 16-byte aligned;
+// partial holds ceil(n / 64) * ceil(d / 16) * 17 doubles of scratch (the
+// register-tile kernel uses ceil(n / 128) * 17 of them); out (d + 1,)
+// float64.
 int gram_moments_f32(const float* xs, const float* g, const float* vmat, const float* v,
                      double* partial, double* out, int64_t n, int d, int r, int family,
                      void* stream) {

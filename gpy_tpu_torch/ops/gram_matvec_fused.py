@@ -219,7 +219,9 @@ def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0):
 
 def gram_moments_cuda(Xs, G, V, v, family=0):
     """The B6 kernel: (D+1,) float64 moments on the square Gram of Xs (one
-    tile pass and a fixed-order reduction, on the current stream)."""
+    tile pass and a fixed-order reduction, on the current stream). Xs and V
+    are copied when their data is not 16-byte aligned (the register-tile
+    kernel copies their tiles 16 bytes at a time)."""
     global moments_launches
     fn = "gram_moments_cuda"
     _check(fn, [("Xs", Xs), ("G", G), ("V", V), ("v", v)], Xs)
@@ -238,6 +240,7 @@ def gram_moments_cuda(Xs, G, V, v, family=0):
     out = torch.empty(D + 1, dtype=torch.float64, device=Xs.device)
     if N == 0:
         return out.zero_()
+    Xs, V = _aligned16(Xs), _aligned16(V)
     tiles = -(-N // _TILE)
     partial = torch.empty(tiles * -(-D // _CHUNK) * _MOM_STRIDE, dtype=torch.float64,
                           device=Xs.device)

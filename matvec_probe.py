@@ -1,28 +1,31 @@
 #!/usr/bin/env python3
-"""Probes the fused Gram-matvec kernel B5 on one CUDA card.
+"""Probes the fused Gram-matvec kernel B5 and its gradient moments B6 on one CUDA card.
 
     python3 matvec_probe.py [--other LABEL=path/to/gram_matvec_fused.cu ...] [--phases]
-                            [--chunk-phases LABEL]
+                            [--chunk-phases LABEL] [--no-times]
 
 Builds gpy_tpu_torch/csrc/gram_matvec_fused.cu and each --other source
 (another version with the same C interface, e.g. the parent commit's,
 unpacked with `git archive` into a git-ignored directory) into
 gpy_tpu_torch/_build/, all at once, then prints one JSON line each for:
   - ptxas' registers, shared memory and spills of every kernel instance;
-  - the SASS of every B5 instance (cuobjdump): its instruction count, and
-    the loops of the main path's instances (MAIN_PATH_SASS) by opcode
-    (their listings go to chiprun_out/);
-  - B6 of every other version against this one on N=50,000 inputs, bit for
-    bit (torch.equal);
-  - with --phases, copies of the source (PHASE_COPIES) join the --other
-    versions: phases deleted (results wrong), where a launch's time goes,
-    and design alternatives (results right), what each element pays; with
+  - the SASS of every B5 and B6 instance (cuobjdump): its instruction
+    count, and the loops of the main path's instances (MAIN_PATH_SASS) by
+    opcode (their listings go to chiprun_out/);
+  - B6 of every version on N=50,000 inputs against the float64 plain twin
+    (within chip_smoke.FUSED_BWD_TOL_50K), and this version's bit for bit
+    against a second launch of itself;
+  - with --phases, copies of the source (PHASE_COPIES for B5,
+    MOMENTS_PHASE_COPIES for B6) join the --other versions: phases deleted
+    (results wrong, not checked), where a launch's time goes, and design
+    alternatives (results right), what each element pays; with
     --chunk-phases LABEL, CHUNK_PHASE_COPIES of the --other LABEL's source
     (the parent's chunk kernel) join them too;
-  - at chip_smoke.py's main-path shape (N=50,000, D=4, RBF) for R = 1, 9
-    and 16: the profiler's device time per launch of every version, in
-    turns (others, this, this, others reversed); each version's error
-    against the plain twin; the bounds.
+  - unless --no-times, at chip_smoke.py's main-path shape (N=50,000, D=4,
+    RBF) for R = 1, 9 and 16: the profiler's device time per launch of
+    every version's B5 and B6 (B6's reduce beside it), in turns (others,
+    this, this, others reversed); each version's error against the plain
+    twin (B6: the float64 one); the bounds.
 Exits non-zero on a failed check or without a CUDA device.
 """
 from __future__ import annotations
@@ -39,14 +42,21 @@ from chol_probe import build_other, phase_copies, ptxas_lines, sass
 
 NAME = "gram_matvec_fused"
 TIME_R = (1, 9, 16)
-# mangled-name fragments of the main path's instances (family RBF): the
-# parent's chunk kernel at R = 9, the register-tile kernel at R = 9, 1, 16
+# mangled-name fragments of the main path's instances (family RBF): B5's
+# chunk kernel at R = 9 (a parent's main path), its register-tile kernel at
+# R = 9, 1, 16; B6's chunk kernel (the same), its register-tile kernel at
+# R = 9, 1, 16
 MAIN_PATH_SASS = ("gram_matvec_kernelILi0ELi9EE", s.MAIN_B5_INSTANCE,
-                  "gram_matvec_tile_kernelILi0ELi1ELi4E", "gram_matvec_tile_kernelILi0ELi16ELi4E")
+                  "gram_matvec_tile_kernelILi0ELi1ELi4E", "gram_matvec_tile_kernelILi0ELi16ELi4E",
+                  "gram_moments_kernelILi0EE", s.MAIN_B6_INSTANCE,
+                  "gram_moments_tile_kernelILi0ELi1ELi4E", "gram_moments_tile_kernelILi0ELi16ELi4E")
+# the profiler's names of B6's kernel at D=4: the register-tile kernel, or
+# the chunk kernel of a source that has none (the parent's)
+B6_TILE, B6_CHUNK = s.B6_KERNEL, "gram_moments_kernel<"
 
-# Copies of the checkout's source. Phases deleted (results wrong, not
-# checked): K left as r2 (no exponential), K summed into one accumulator
-# (no contraction with V), the column tiles' staging only (no K, no
+# Copies of the checkout's source that cut B5. Phases deleted (results
+# wrong, not checked): K left as r2 (no exponential), K summed into one
+# accumulator (no contraction with V), the column tiles' staging only (no K, no
 # contraction). Design alternatives (results right): exp2f in place of
 # ex2.approx, each thread waiting for its next tile's copies before it
 # computes (no overlap). PHASE_COPIES cut the register-tile kernel
@@ -54,8 +64,8 @@ MAIN_PATH_SASS = ("gram_matvec_kernelILi0ELi9EE", s.MAIN_B5_INSTANCE,
 # the parent's main-path kernel and today's D > 8 path (--chunk-phases
 # LABEL: copies of the --other LABEL's source).
 _NO_EXP = ("k[q] = k_of_r2_fast<FAM>(r2, vv);", "k[q] = r2;")
-_CONTRACTION = "      for (int c = 0; c < RC; ++c) {\n        acc[c] = fmaf(k[0], va[c], acc[c]);"
-_NO_CONTRACTION = (_CONTRACTION, "      acc[0] += (k[0] + k[1]) + (k[2] + k[3]);\n"
+_CONTRACTION = "    for (int c = 0; c < RC; ++c) {\n      acc[c] = fmaf(k[0], va[c], acc[c]);"
+_NO_CONTRACTION = (_CONTRACTION, "    acc[0] += (k[0] + k[1]) + (k[2] + k[3]);\n"
                    + _CONTRACTION.replace("c < RC", "c < 0"))
 _LOAD_ONLY = ("for (int s = 0; s < kSteps; ++s) {", "for (int s = 0; s < 0; ++s) {")
 _EXP2F = ("__device__ __forceinline__ float ex2_approx(float x) {\n  float y;",
@@ -81,6 +91,16 @@ CHUNK_PHASE_COPIES = {
     "chunk_no_exp": [_CHUNK_NO_EXP],
     "chunk_no_contraction": [_CHUNK_NO_CONTRACTION],
     "chunk_load_only": [_CHUNK_NO_EXP, _CHUNK_NO_CONTRACTION, _CHUNK_NO_R2],
+}
+# Copies that cut B6's register-tile kernel (--phases; results wrong, not
+# checked): the weights left as w r2' and w (no exponential), W' from one
+# product in place of R (no contraction with G), and the column tiles'
+# staging only (as load_only).
+MOMENTS_PHASE_COPIES = {
+    "moments_no_exp": [("moment_weights<FAM>(r2, w, wk, wn);", "wk = w * r2;\n      wn = w;")],
+    "moments_no_w": [("for (int c = 1; c < RC; ++c) w = fmaf(gq[c], vq[c], w);",
+                      "for (int c = 1; c < 0; ++c) w = fmaf(gq[c], vq[c], w);")],
+    "moments_load_only": [_LOAD_ONLY],
 }
 
 
@@ -116,22 +136,40 @@ def launchers(so, label):
     return matvec, moments
 
 
-def check_moments(fns):
-    """B6 of every other version against this one, bit for bit, on the
-    inputs of chip_smoke.time_moments."""
+def moments_inputs(R):
+    """chip_smoke.time_moments' inputs at N=50,000, D=4: scaled X, G, V, v."""
+    X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, s.ITER_D, R, seed=12)
+    _, _, G, _, _ = s.fused_inputs(s.ITER_N, None, s.ITER_D, R, seed=13)
+    return (X / ls).contiguous(), G, V, v.reshape(1)
+
+
+def moments_errors(fns, fm, inputs):
+    """Each version's B6 on `inputs` against the float64 plain twin,
+    relative to max|ref|, and this version's result."""
+    ref = fm.gram_moments_plain(*(t.double() for t in inputs), 0)
+    scale = float(ref.abs().max())
+    out = {label: moments(*inputs) for label, moments in fns.items()}
+    return {label: float((o - ref).abs().max()) / scale for label, o in out.items()}, out["this"]
+
+
+def check_moments(fns, fm, unchecked):
+    """B6 of every version but the timing-only `unchecked` within
+    FUSED_BWD_TOL_50K of the float64 plain twin, and this version's bit for
+    bit against a second launch of itself, on chip_smoke.time_moments'
+    inputs (R=9)."""
     import torch
 
-    X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, s.ITER_D, 9, seed=12)
-    _, _, G, _, _ = s.fused_inputs(s.ITER_N, None, s.ITER_D, 9, seed=13)
-    Xs = (X / ls).contiguous()
-    v1 = v.reshape(1)
-    ref = fns["this"][1](Xs, G, V, v1)
-    out = {}
-    for label, (_, moments) in fns.items():
-        same = bool(torch.equal(moments(Xs, G, V, v1), ref))
-        s.check(same, f"gram_moments of {label} differs from this version's")
-        out[label] = same
-    return {"N": s.ITER_N, "D": s.ITER_D, "R": 9, "bit_for_bit": out, "moments": ref.tolist()}
+    inputs = moments_inputs(9)
+    err, first = moments_errors(fns, fm, inputs)
+    for label, rel in err.items():
+        if label not in unchecked:
+            s.check(rel <= s.FUSED_BWD_TOL_50K,
+                    f"gram_moments of {label}: rel err {rel} vs float64 > {s.FUSED_BWD_TOL_50K}")
+    same = bool(torch.equal(fns["this"](*inputs), first))
+    s.check(same, "gram_moments: two launches of this version differ")
+    return {"N": s.ITER_N, "D": s.ITER_D, "R": 9, "rel_err_vs_f64_plain": err,
+            "rel_tol": s.FUSED_BWD_TOL_50K, "unchecked": sorted(unchecked & set(err)),
+            "this_repeats_bit_for_bit": same, "moments": first.tolist()}
 
 
 def times(versions, fm):
@@ -166,6 +204,36 @@ def times(versions, fm):
     return rows
 
 
+def moments_times(fns, names, fm):
+    """Each version's B6 device time per launch (the kernel named in
+    `names`) and its reduce's, in turns, with its error against the float64
+    plain twin, at N=50,000, D=4 for R in TIME_R."""
+    import torch
+
+    versions = list(fns)
+    rows = []
+    for R in TIME_R:
+        inputs = moments_inputs(R)
+        err, _ = moments_errors(fns, fm, inputs)
+        s.check(err["this"] <= s.FUSED_BWD_TOL_50K,
+                f"gram_moments R={R}: rel err {err['this']} vs float64 > {s.FUSED_BWD_TOL_50K}")
+        got = {label: [] for label in versions}
+        reduce = {label: [] for label in versions}
+        for label in versions + versions[::-1]:
+            ms, reduce_ms, _, _ = s.device_ms(lambda: fns[label](*inputs), reps=10,
+                                              warmup=2, kernel=names[label])
+            got[label].append(ms)
+            reduce[label].append(reduce_ms)
+        bound_ms, bound_by = s.gram_moments_bound(s.ITER_N, s.ITER_D, R)
+        rows.append({"N": s.ITER_N, "D": s.ITER_D, "R": R, "device_ms": got,
+                     "reduce_device_ms": reduce, "kernel": names,
+                     "rel_err_vs_f64_plain": err, "bound_ms": bound_ms, "bound_by": bound_by})
+        s.emit({"phase": "moments_times_row", **rows[-1]})
+        del inputs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -176,6 +244,8 @@ def main() -> int:
                     help="also time PHASE_COPIES of the checkout's source")
     ap.add_argument("--chunk-phases", metavar="LABEL",
                     help="also time CHUNK_PHASE_COPIES of the --other LABEL's source")
+    ap.add_argument("--no-times", action="store_true",
+                    help="build, report and check only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("matvec_probe: torch sees no CUDA device", file=sys.stderr)
@@ -193,7 +263,8 @@ def main() -> int:
                                CHUNK_PHASE_COPIES)
     if args.phases:
         others += phase_copies(os.path.join(_build.CSRC_DIR, NAME + ".cu"),
-                               os.path.join(_build.BUILD_DIR, "matvec_phases"), PHASE_COPIES)
+                               os.path.join(_build.BUILD_DIR, "matvec_phases"),
+                               {**PHASE_COPIES, **MOMENTS_PHASE_COPIES})
     with ThreadPoolExecutor(max_workers=1 + len(others)) as ex:
         this = ex.submit(_build.build, NAME)
         futures = {label: ex.submit(build_other, _build, label, src, NAME)
@@ -206,13 +277,21 @@ def main() -> int:
         if "error" not in kernels:
             kernels = {k: (v if any(m in k for m in MAIN_PATH_SASS)
                            else {"instructions": v["instructions"]})
-                       for k, v in kernels.items() if re.search(r"\dgram_matvec_(tile_|wide_)?kernelI", k)}
+                       for k, v in kernels.items()
+                       if re.search(r"\dgram_(matvec_(tile_|wide_)?|moments_(tile_)?)kernelI", k)}
         s.emit({"phase": "sass", "version": label, "kernels": kernels})
 
     fns = {label: launchers(path, label) for label, (path, _) in builds.items()}
-    s.emit({"phase": "gram_moments_bit_for_bit", **check_moments(fns)})
-    versions = [(label, f[0]) for label, f in fns.items()]
-    s.emit({"phase": "times", "nvidia_smi": smi, "rows": times(versions, fm)})
+    b5_only = set(PHASE_COPIES) | set(CHUNK_PHASE_COPIES)
+    b6 = {label: f[1] for label, f in fns.items() if label not in b5_only}
+    s.emit({"phase": "gram_moments_check", **check_moments(b6, fm, set(MOMENTS_PHASE_COPIES))})
+    if not args.no_times:
+        versions = [(label, f[0]) for label, f in fns.items() if label not in MOMENTS_PHASE_COPIES]
+        s.emit({"phase": "times", "nvidia_smi": smi, "rows": times(versions, fm)})
+        names = {label: B6_TILE if "gram_moments_tile_kernel" in builds[label][1] else B6_CHUNK
+                 for label in b6}
+        s.emit({"phase": "moments_times", "nvidia_smi": smi,
+                "rows": moments_times(b6, names, fm)})
     print(smi, flush=True)
     return 0
 

@@ -1,5 +1,5 @@
-"""matvec_probe.py's copies of the B5 source (the probe itself runs only
-on the card)."""
+"""matvec_probe.py's copies of the B5 and B6 source (the probe itself runs
+only on the card)."""
 import os
 
 import pytest
@@ -11,12 +11,13 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "gpy_tpu_torch", "csrc", "gram_matvec_fused.cu")
 
 
-@pytest.mark.parametrize("copies", ["PHASE_COPIES", "CHUNK_PHASE_COPIES"])
+@pytest.mark.parametrize("copies", ["PHASE_COPIES", "CHUNK_PHASE_COPIES",
+                                    "MOMENTS_PHASE_COPIES"])
 def test_phase_copies_apply_to_the_kernel_source(tmp_path, copies):
     """Each copy finds its text in csrc/gram_matvec_fused.cu exactly once
-    (the register-tile kernel's, and the chunk kernel's that the D > 8
-    path keeps), so an edit of the kernel that moves that text fails here,
-    not on the card."""
+    (B5's register-tile kernel's, the chunk kernel's that the D > 8 path
+    keeps, and B6's register-tile kernel's), so an edit of the kernel that
+    moves that text fails here, not on the card."""
     table = getattr(matvec_probe, copies)
     original = open(SRC).read()
     for subs in table.values():
@@ -40,3 +41,17 @@ def test_main_path_instance_is_the_one_launched():
     assert "if (r <= 9) return launch_tile<FAM, 9, DMAX>" in src
     assert chip_smoke.MAIN_B5_INSTANCE == "gram_matvec_tile_kernelILi0ELi9ELi4E"
     assert chip_smoke.MAIN_B5_INSTANCE in matvec_probe.MAIN_PATH_SASS
+
+
+def test_main_path_b6_instance_is_the_one_launched():
+    """The SASS the probe reports and the kernels line's ptxas entry for B6
+    name the instance the main path launches at D=4, R=9 (RBF, R chunk 9,
+    DMAX 4), and the profiler's name of the new kernel does not match the
+    parent's chunk kernel, so the probe times each by its own name."""
+    src = open(SRC).read()
+    assert "if (d <= 4 && r <= 16) return moments_tile<FAM, 4>" in src
+    assert "if (r <= 9) return launch_moments_tile<FAM, 9, DMAX>" in src
+    assert chip_smoke.MAIN_B6_INSTANCE == "gram_moments_tile_kernelILi0ELi9ELi4E"
+    assert chip_smoke.MAIN_B6_INSTANCE in matvec_probe.MAIN_PATH_SASS
+    assert matvec_probe.B6_TILE.rstrip("<") in chip_smoke.MAIN_B6_INSTANCE
+    assert matvec_probe.B6_CHUNK not in "gram_moments_tile_kernel<0, 9, 4>"
