@@ -59,11 +59,13 @@ Phases, each printing one JSON line:
                 unbatched path and a float64 twin; one HMC_shortcut run;
  13. restarts -- optimize_restarts(parallel=True) with 16 restarts on the
                 same model, against L-BFGS-B;
- 14. chol_times -- B2/B3 at (C, 128, 128), C = 2, 4, 8, 16, float32 and
-                float64, by the profiler's device time and by CUDA events;
-                CUDA-event times of B4 at (8|16, 128, 128) and of the
-                left-looking factorization at (8, 1000, 1000); each beside
-                its plain twin, its bound and one PyTorch call;
+ 14. chol_times -- B2/B3 and B4 at (C, 128, 128), C = 2, 4, 8, 16, float32
+                and float64, by the profiler's device time and by CUDA
+                events, each beside its plain twin, its bound and the
+                library (batched torch.linalg.cholesky; for B4 with
+                solve_triangular); the three blocked routines and the
+                library at (C, 1000, 1000) float32, C = 2, 4, 8, 16: device
+                time, wall time and B2/B4 launches per call;
  15. hmc_profile -- device time by kernel over one batched logp+gradient at
                 8 chains.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
@@ -80,10 +82,11 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and float32 / float64
-# outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the
+# tensor cores, and float64 on them (DMMA, the card's fastest float64 rate;
+# 34 TF/s outside them)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 # dense TF32 on the tensor cores (the same data sheet)
 PEAK_TF32_TC = 495e12
 
@@ -134,18 +137,22 @@ def cuda_ms(fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(kernel_fn, library_fn=None, reps=50, warmup=3, kernel="block_chol_kernel<"):
-    """Device time per call from torch.profiler, for a wrapper that launches
-    one kernel whose name contains `kernel` (B2's by default) and,
-    optionally, a library call: `reps` calls of each in turn, each kernel's
-    self time summed and divided by the number of launches of `kernel` the
-    profiler recorded. At tens of microseconds a
+def device_ms(kernel_fn, library_fn=None, reps=50, warmup=3, kernel="block_chol_kernel<",
+              per_call=1):
+    """Device time per call from torch.profiler, for a function that launches
+    `per_call` kernels whose name contains `kernel` (B2's by default), and
+    optionally a library call: `reps` calls of each in turn, each kernel's
+    self time summed and divided by the calls recorded, the launches of
+    `kernel` the profiler recorded over `per_call`. At tens of microseconds a
     call, `cuda_ms` can read the host's enqueue time of the Python wrapper
-    instead of the kernel; this clock cannot. Dividing by the recorded
-    launches, not by reps, keeps it right when the profiler drops device
+    instead of the kernel; this clock cannot. Counting the recorded
+    launches, not reps, keeps it right when the profiler drops device
     events: on an H100, late in a long process, sessions lost their first
-    launches. Returns (kernel ms, library ms, library kernels per call,
-    launches of `kernel` recorded)."""
+    launches. Where a call launches more than one kernel a lost call is not
+    lost evenly, so a session that lost more than one call's launches of
+    `kernel` is run again, up to five in all, and the fullest is taken.
+    Returns (ms of `kernel`, ms of every other kernel, other kernels per
+    call, calls recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,6 +161,7 @@ def device_ms(kernel_fn, library_fn=None, reps=50, warmup=3, kernel="block_chol_
         if library_fn is not None:
             library_fn()
     torch.cuda.synchronize()
+    best = None
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -163,12 +171,16 @@ def device_ms(kernel_fn, library_fn=None, reps=50, warmup=3, kernel="block_chol_
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         ours = [e for e in rows if kernel in e.key]
-        if len(ours) == 1 and 5 * ours[0].count >= reps:
+        if len(ours) == 1 and (best is None or ours[0].count > best[1][0].count):
+            best = (rows, ours)
+        if len(ours) == 1 and ours[0].count >= (reps - 1) * per_call:
             break
-    else:
+    if best is None or 5 * best[1][0].count < reps * per_call:
         raise RuntimeError(f"chip_smoke check failed: torch.profiler recorded fewer than "
-                           f"{reps // 5} of {reps} {kernel} launches in five sessions")
-    n = ours[0].count
+                           f"{reps * per_call // 5} of {reps * per_call} {kernel} launches "
+                           f"in five sessions")
+    rows, ours = best
+    n = ours[0].count / per_call
     others = [e for e in rows if e is not ours[0]]
     return (ours[0].self_device_time_total / n / 1e3,
             sum(e.self_device_time_total for e in others) / n / 1e3,
@@ -877,6 +889,8 @@ HMC_RESTARTS = 16
 CHOL_BLOCK = 128
 # the batches the HMC chains and the restarts hand B2/B3, timed in chol_times
 CHOL_TIME_BATCHES = (2, 4, 8, 16)
+# the batches B4 is checked at
+CHOL_INV_BATCHES = (2, 8, 16)
 
 
 def chol_batches(bc):
@@ -925,6 +939,10 @@ def check_block_chol(bc, C, dtype):
 
 
 def check_block_chol_inv(bc, C, dtype):
+    """B4 against its plain twin: L within CHOL_TOL, L^-1 within
+    CHOL_INV_TOL, |L^-1 L - I| within CHOL_RESID_TOL; both outputs exactly
+    zero above the diagonal, equal bits from two launches, and L bit-equal
+    to B2/B3's (the kernels share their factor)."""
     import torch
 
     name = str(dtype).replace("torch.", "")
@@ -936,9 +954,15 @@ def check_block_chol_inv(bc, C, dtype):
     err_li = float((Li - Lip).abs().max())
     eye = torch.eye(CHOL_BLOCK, dtype=torch.float64, device="cuda")
     resid = float((Li.double() @ L.double() - eye).abs().max())
-    check(err_l <= CHOL_TOL[name], f"block_chol_inv C={C} {name}: L err {err_l}")
-    check(err_li <= CHOL_INV_TOL[name], f"block_chol_inv C={C} {name}: L^-1 err {err_li}")
-    check(resid <= CHOL_RESID_TOL[name], f"block_chol_inv C={C} {name}: |L^-1 L - I| {resid}")
+    label = f"block_chol_inv C={C} {name}"
+    check(err_l <= CHOL_TOL[name], f"{label}: L err {err_l}")
+    check(err_li <= CHOL_INV_TOL[name], f"{label}: L^-1 err {err_li}")
+    check(resid <= CHOL_RESID_TOL[name], f"{label}: |L^-1 L - I| {resid}")
+    check(torch.equal(L, torch.tril(L)) and torch.equal(Li, torch.tril(Li)),
+          f"{label}: entries above a diagonal")
+    L2, Li2 = bc.block_chol_inv_cuda(A)
+    check(torch.equal(L, L2) and torch.equal(Li, Li2), f"{label}: two launches differ")
+    check(torch.equal(L, bc.block_chol_cuda(A)), f"{label}: L differs from block_chol's")
     return {"C": C, "dtype": name, "max_abs_err": err_l, "inv_max_abs_err": err_li,
             "inv_resid": resid, "tol": [CHOL_TOL[name], CHOL_INV_TOL[name], CHOL_RESID_TOL[name]]}
 
@@ -967,6 +991,10 @@ def first_nan_column(L) -> int:
     return int(cols[0]) if cols else L.shape[-1]
 
 
+def first_nan_row(L) -> int:
+    return first_nan_column(L.transpose(-1, -2))
+
+
 # B2/B3's bad pivots: a diagonal entry set to -5 inside the first 16-column
 # panel, on the first panel boundary, and in the last panel; then a pivot
 # that turns negative only through the trailing updates (column 100, in the
@@ -976,53 +1004,63 @@ NAN_RANK = 100
 
 
 def check_nan_isolation(bc, dtype):
-    """A bad pivot in element 3 of 8. B2/B3, for each case of NAN_PIVOTS
-    and the rank-deficient block: NaN only in element 3, its NaN entries
-    and first NaN column the plain twin's, its columns before that column
-    within CHOL_TOL of the twin (and, for an injected pivot, bit-equal to
-    the clean run's), the other seven elements bit-equal to a clean run.
-    B4 on the first case: NaN only in element 3, the others bit-equal."""
+    """A bad pivot in element 3 of 8, for each case of NAN_PIVOTS and the
+    rank-deficient block, through B2/B3 (L) and B4 (L and L^-1): NaN only
+    in element 3; its NaN entries and its first NaN row and column the
+    plain twin's (L's first NaN row and column the pivot's, L^-1's first
+    NaN row too); L's columns before the pivot within CHOL_TOL of the twin
+    and, for an injected pivot, bit-equal to the clean run's, as are L^-1's
+    rows before it; exact zeros above every diagonal; the other seven
+    elements bit-equal to a clean run."""
     import torch
 
     name = str(dtype).replace("torch.", "")
     A = chol_inputs(8, CHOL_BLOCK, dtype, seed=77)
     others = (0, 1, 2, 4, 5, 6, 7)
-    clean = bc.block_chol_cuda(A)
-    cases = []
+    kernels = {"block_chol": (lambda X: (bc.block_chol_cuda(X),),
+                              lambda X: (bc.block_chol_plain(X),)),
+               "block_chol_inv": (bc.block_chol_inv_cuda, bc.block_chol_inv_plain)}
+    clean = {k: run(A) for k, (run, _) in kernels.items()}
+    cases = {k: [] for k in kernels}
     for col in NAN_PIVOTS + (NAN_RANK,):
         bad = A.clone()
         if col == NAN_RANK:
             bad[3] = rank_deficient_block(CHOL_BLOCK, NAN_RANK, dtype, seed=78)
         else:
             bad[3, col, col] = -5.0
-        L, Lp = bc.block_chol_cuda(bad), bc.block_chol_plain(bad)
-        torch.cuda.synchronize()
-        label = f"block_chol {name} bad pivot at {col}"
-        nan = L.isnan().flatten(1).any(1).tolist()
-        check(nan == [c == 3 for c in range(8)], f"{label}: NaN in elements {nan}")
-        first = first_nan_column(L[3])
-        check(first == first_nan_column(Lp[3]) == col,
-              f"{label}: first NaN column {first}, twin {first_nan_column(Lp[3])}")
-        check(torch.equal(L[3].isnan(), Lp[3].isnan()), f"{label}: NaN entries differ from twin")
-        err = float((L[3, :, :col] - Lp[3, :, :col]).abs().max())
-        check(err <= CHOL_TOL[name], f"{label}: columns before it differ from twin by {err}")
-        if col != NAN_RANK:
-            check(torch.equal(L[3, :, :col], clean[3, :, :col]),
-                  f"{label}: columns before it differ from the clean run")
-        for c in others:
-            check(torch.equal(L[c], clean[c]), f"{label}: element {c} changed")
-        cases.append({"column": col, "first_nan_column": first, "pre_nan_err_vs_twin": err,
-                      "kind": "rank-deficient" if col == NAN_RANK else "diagonal set to -5"})
-    bad = A.clone()
-    bad[3, 10, 10] = -5.0
-    for clean_x, dirty in zip(bc.block_chol_inv_cuda(A), bc.block_chol_inv_cuda(bad)):
-        torch.cuda.synchronize()
-        nan = dirty.isnan().flatten(1).any(1).tolist()
-        check(nan == [c == 3 for c in range(8)], f"block_chol_inv {name}: NaN rows {nan}")
-        for c in others:
-            check(torch.equal(clean_x[c], dirty[c]), f"block_chol_inv {name}: element {c} changed")
-    return {"dtype": name, "bad_element": 3, "block_chol": cases,
-            "block_chol_inv": {"column": 10, "nan_only_there": True, "others_bit_equal": True}}
+        for kname, (run, twin) in kernels.items():
+            outs, refs = run(bad), twin(bad)
+            torch.cuda.synchronize()
+            label = f"{kname} {name} bad pivot at {col}"
+            firsts = []
+            for which, X, Xp, Xc in zip(("L", "L^-1"), outs, refs, clean[kname]):
+                lab = f"{label}, {which}"
+                nan = X.isnan().flatten(1).any(1).tolist()
+                check(nan == [c == 3 for c in range(8)], f"{lab}: NaN in elements {nan}")
+                first = (first_nan_row(X[3]), first_nan_column(X[3]))
+                twin_first = (first_nan_row(Xp[3]), first_nan_column(Xp[3]))
+                check(first == twin_first and first[0] == col,
+                      f"{lab}: first NaN row and column {first}, twin {twin_first}")
+                check(torch.equal(X[3].isnan(), Xp[3].isnan()),
+                      f"{lab}: NaN entries differ from twin")
+                check(bool((torch.triu(X, 1) == 0).all()), f"{lab}: entries above the diagonal")
+                for c in others:
+                    check(torch.equal(X[c], Xc[c]), f"{lab}: element {c} changed")
+                firsts.append(first)
+            L, Lp, Lc = outs[0], refs[0], clean[kname][0]
+            check(firsts[0][1] == col, f"{label}: first NaN column of L {firsts[0][1]}")
+            err = float((L[3, :, :col] - Lp[3, :, :col]).abs().max())
+            check(err <= CHOL_TOL[name], f"{label}: columns before it differ from twin by {err}")
+            if col != NAN_RANK:
+                check(torch.equal(L[3, :, :col], Lc[3, :, :col]),
+                      f"{label}: columns before it differ from the clean run")
+                if len(outs) == 2:
+                    check(torch.equal(outs[1][3, :col], clean[kname][1][3, :col]),
+                          f"{label}: rows of L^-1 before it differ from the clean run")
+            cases[kname].append({
+                "column": col, "first_nan_row_column": firsts, "pre_nan_err_vs_twin": err,
+                "kind": "rank-deficient" if col == NAN_RANK else "diagonal set to -5"})
+    return {"dtype": name, "bad_element": 3, **cases}
 
 
 def hmc_data(seed=0):
@@ -1107,7 +1145,7 @@ def run_kernels_chol(bc, m):
            "block_chol": [check_block_chol(bc, C, dt) for dt in (torch.float32, torch.float64)
                           for C in chol_batches(bc)],
            "block_chol_inv": [check_block_chol_inv(bc, C, dt)
-                              for dt in (torch.float32, torch.float64) for C in (2, 8, 16)],
+                              for dt in (torch.float32, torch.float64) for C in CHOL_INV_BATCHES],
            "nan_isolation": [check_nan_isolation(bc, dt) for dt in (torch.float32, torch.float64)]}
     rec["blocked"], b4_path_launches = check_blocked(bc, m)
     # rec_block_chol_inv: B4 leaves of an identity-padded (8, 1024, 1024) batch
@@ -1284,12 +1322,13 @@ def run_restarts(X, Y):
 
 
 def chol_bound(C, n, dtype_name, outputs):
-    """Least time on the card: A read and `outputs` (n, n) results written
-    once over the memory rate, or C n^3/3 operations per output (the
-    factor's n^3/6 multiply-adds; the triangular inverse's as many, as
-    LAPACK counts potrf and trtri) over the peak rate."""
+    """Least time on the card: A's lower triangle (all the kernels read)
+    read and `outputs` (n, n) results written once over the memory rate, or
+    C n^3/3 operations per output (the factor's n^3/6 multiply-adds; the
+    triangular inverse's as many, as LAPACK counts potrf and trtri) over
+    the peak rate."""
     isz = 4 if dtype_name == "float32" else 8
-    t_bytes = isz * C * n * n * (1 + outputs) / PEAK_BYTES_S
+    t_bytes = isz * C * (n * (n + 1) // 2 + outputs * n * n) / PEAK_BYTES_S
     t_ops = outputs * C * n ** 3 / 3 / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1314,36 +1353,92 @@ def time_block_chol(bc, C, dtype):
             "library": "torch.linalg.cholesky (batched)", "bound_ms": bound, "bound_by": by}
 
 
+def chol_inv_library(A):
+    """(L, L^-1) by two PyTorch calls: B4's yardstick, never called by the port."""
+    import torch
+
+    L = torch.linalg.cholesky(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(A.shape)
+    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+B4_KERNEL = "block_chol_inv_kernel<"
+
+
+def time_block_chol_inv(bc, C, dtype):
+    """B4 at (C, 128, 128): the profiler's device time per launch (`ms`)
+    beside the event time, and the same two clocks for `chol_inv_library`
+    on the same inputs."""
+    name = str(dtype).replace("torch.", "")
+    A = chol_inputs(C, CHOL_BLOCK, dtype, seed=5 + C)
+    bound, by = chol_bound(C, CHOL_BLOCK, name, 2)
+    ms, lib_ms, lib_kernels, recorded = device_ms(lambda: bc.block_chol_inv_cuda(A),
+                                                  lambda: chol_inv_library(A), kernel=B4_KERNEL)
+    return {"C": C, "n": CHOL_BLOCK, "dtype": name, "ms": ms,
+            "event_ms": cuda_ms(lambda: bc.block_chol_inv_cuda(A), reps=50),
+            "plain_ms": cuda_ms(lambda: bc.block_chol_inv_plain(A), reps=3, warmup=1),
+            "library_ms": lib_ms, "library_kernels_per_call": lib_kernels,
+            "library_event_ms": cuda_ms(lambda: chol_inv_library(A), reps=50),
+            "profiled_calls": recorded,
+            "library": "torch.linalg.cholesky + torch.linalg.solve_triangular (two calls)",
+            "bound_ms": bound, "bound_by": by}
+
+
+def time_blocked(fn, K, kernel, per_call):
+    """One blocked factorization fn(K), which launches `per_call` kernels
+    named `kernel`: device time per call (`device_ms`, every kernel
+    summed), device kernels per call, and the wall time of a call ending in
+    a synchronize."""
+    ms, rest_ms, rest_kernels, calls = device_ms(lambda: fn(K), reps=10, warmup=2,
+                                                 kernel=kernel, per_call=per_call)
+    return {"device_ms": ms + rest_ms, "device_kernels_per_call": per_call + rest_kernels,
+            "profiled_calls": calls, "wall_ms": host_ms(lambda: fn(K), reps=5, warmup=1)}
+
+
+def time_blocked_library(bc, K):
+    """`time_blocked` for `chol_inv_library(K)`, which launches none of the
+    port's kernels: a B2 launch on one (128, 128) block before each call
+    counts the calls, and its own time is left out."""
+    marker = chol_inputs(1, CHOL_BLOCK, K.dtype, seed=4)
+    _, ms, kernels, calls = device_ms(lambda: bc.block_chol_cuda(marker),
+                                      lambda: chol_inv_library(K), reps=10, warmup=2)
+    return {"device_ms": ms, "device_kernels_per_call": kernels, "profiled_calls": calls,
+            "wall_ms": host_ms(lambda: chol_inv_library(K), reps=5, warmup=1)}
+
+
+def blocked_times(bc, m, C):
+    """The three blocked routines and the library on one (C, 1000, 1000)
+    float32 batch of the HMC model's Grams: device and wall time per call,
+    and the launches of B2 and B4 in one call."""
+    K = batch_grams(m, C, seed=21 + C)
+    out = {"C": C, "n": HMC_N, "dtype": "float32"}
+    for name, fn, kernel in (
+            ("v1", lambda k: bc.batched_chol_inv(k, version=1), B4_KERNEL),
+            ("v2", lambda k: bc.batched_chol_inv(k, version=2), "block_chol_kernel<"),
+            ("ll", bc.batched_chol_inv_ll, "block_chol_kernel<")):
+        reset_counters()
+        fn(K)
+        launched = counters()
+        out[name] = {**time_blocked(fn, K, kernel, per_call=block_columns()),
+                     "launches": {k: launched[k] for k in ("block_chol", "block_chol_inv")}}
+    out["library"] = time_blocked_library(bc, K)
+    return out
+
+
 def chol_times(bc, m, smi):
     import torch
 
-    rows = {"block_chol": [time_block_chol(bc, C, dt) for dt in (torch.float32, torch.float64)
-                           for C in CHOL_TIME_BATCHES],
-            "block_chol_timing": "ms and library_ms: torch.profiler device time per call; "
-                                 "event_ms and library_event_ms: CUDA events over 50 calls",
-            "block_chol_inv": []}
-    for C in (8, 16):
-        A = chol_inputs(C, CHOL_BLOCK, torch.float32, seed=5 + C)
-        eye = torch.eye(CHOL_BLOCK, device="cuda").expand(C, -1, -1)
-        bound, by = chol_bound(C, CHOL_BLOCK, "float32", 2)
-        rows["block_chol_inv"].append({
-            "C": C, "n": CHOL_BLOCK, "dtype": "float32",
-            "ms": cuda_ms(lambda: bc.block_chol_inv_cuda(A), reps=50),
-            "plain_ms": cuda_ms(lambda: bc.block_chol_inv_plain(A), reps=3, warmup=1),
-            "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
-                torch.linalg.cholesky(A), eye, upper=False), reps=50),
-            "library": "torch.linalg.cholesky + torch.linalg.solve_triangular (two calls)",
-            "bound_ms": bound, "bound_by": by})
-    K = batch_grams(m, 8, seed=21)
-    eye = torch.eye(HMC_N, device="cuda").expand(8, -1, -1)
-    bound, by = chol_bound(8, HMC_N, "float32", 2)
-    blocked = {"C": 8, "n": HMC_N, "dtype": "float32",
-              "ms": cuda_ms(lambda: bc.batched_chol_inv_ll(K), reps=20),
-              "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
-                  torch.linalg.cholesky(K), eye, upper=False), reps=20),
-              "library": "torch.linalg.cholesky + torch.linalg.solve_triangular (two calls)",
-              "bound_ms": bound, "bound_by": by}
-    return {"phase": "chol_times", "nvidia_smi": smi, **rows, "batched_chol_inv_ll": blocked}
+    dts = (torch.float32, torch.float64)
+    return {"phase": "chol_times", "nvidia_smi": smi,
+            "block_chol": [time_block_chol(bc, C, dt) for dt in dts for C in CHOL_TIME_BATCHES],
+            "block_chol_inv": [time_block_chol_inv(bc, C, dt) for dt in dts
+                               for C in CHOL_TIME_BATCHES],
+            "timing": "ms and library_ms: torch.profiler device time per call; "
+                      "event_ms and library_event_ms: CUDA events over 50 calls",
+            "blocked": [blocked_times(bc, m, C) for C in CHOL_TIME_BATCHES],
+            "blocked_timing": "device_ms: torch.profiler device time per call, all kernels; "
+                              "wall_ms: host clock to a synchronize, median of 5; "
+                              "library: torch.linalg.cholesky + solve_triangular"}
 
 
 def profile_hmc_eval(hmc, C=8):
@@ -1457,7 +1552,8 @@ def main() -> int:
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
-    b2 = next(r for r in ctimes["block_chol"] if r["C"] == 8 and r["dtype"] == "float32")
+    b2, b4 = (next(r for r in ctimes[k] if r["C"] == 8 and r["dtype"] == "float32")
+              for k in ("block_chol", "block_chol_inv"))
     mv_all = itimes["gram_matvec_fused"]
     emit({"kernels": [{
         "name": "rbf_gram", "route": "cuda", "source": "gpy_tpu_torch/csrc/rbf_gram.cu",
@@ -1484,7 +1580,7 @@ def main() -> int:
     }, {
         "name": "gram_moments", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
-        "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:268",
+        "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:269",
         "launches": iter_rec["fused"]["launches"]["gram_moments"],
         "max_abs_err": mom["max_abs_err_vs_f64_plain"], "main_path_rel_err": mom["rel_err"],
         "main_path_rel_tol": FUSED_BWD_TOL_50K, "shape": f"N={ITER_N}, D={ITER_D}, R=9",
@@ -1508,12 +1604,11 @@ def main() -> int:
         "launches_path": "batched_chol_inv(version=1) and rec_block_chol_inv in kernels_chol; "
                          "0 on the HMC path",
         "max_abs_err": chol_err["block_chol_inv"],
-        "shape": "(8, 128, 128) float32", "ms": ctimes["block_chol_inv"][0]["ms"],
-        "plain_ms": ctimes["block_chol_inv"][0]["plain_ms"],
-        "bound_ms": ctimes["block_chol_inv"][0]["bound_ms"],
-        "bound_by": ctimes["block_chol_inv"][0]["bound_by"],
-        "library_ms": ctimes["block_chol_inv"][0]["library_ms"],
-        "library": ctimes["block_chol_inv"][0]["library"],
+        "shape": "(8, 128, 128) float32", "ms": b4["ms"], "event_ms": b4["event_ms"],
+        "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+        "library_ms": b4["library_ms"], "library": b4["library"],
+        "timing": "ms and library_ms are torch.profiler device time per call; "
+                  f"library_event_ms {b4['library_event_ms']}",
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,9 @@
 //   become `block_chol`: on the card the blocks of a batch run on separate
 //   SMs, so there is nothing to interleave;
 //   _block_kernel (:64, via pallas_block_chol_inv :224) becomes
-//   `block_chol_inv`. The TPU kernels write L transposed (a Mosaic layout
-//   constraint); here L is written as it is.
+//   `block_chol_inv`, on the factor of `block_chol`. The TPU kernels
+//   write L transposed (a Mosaic layout constraint); here L is written as
+//   it is.
 //
 // block_chol: a blocked right-looking factor, one 512-thread block per
 // matrix, the matrix in shared memory (rows padded by 16 bytes, so that
@@ -59,17 +60,46 @@
 // column loop this design replaced and 0.094-0.104 ms for batched
 // torch.linalg.cholesky.
 //
-// block_chol_inv (B4) still runs that column loop, until its own redesign:
-// one 512-thread block per matrix, thread (tx, ty) of a 32 x 16 layout
-// holding the 8 x 4 entries (ty + 16a, tx + 32b) in registers; at step k
-// the holders of column k publish it to a double-buffered shared column,
-// every thread applies the rank-1 update to its lower-triangle entries
-// (one __syncthreads a step). The inverse is forward substitution in the
-// same form, X = L^-1 with X[k, :] = B[k, :] / L[k, k] and B[i, :] -=
-// L[i, k] X[k, :] for i > k, X in registers; its columns of L come from a
-// shared copy of L^T that the factor loop fills as it goes (64 KB in
-// float32, 128 KB in float64, since two float64 tiles exceed the 227 KB a
-// block can have).
+// block_chol_inv (B4) runs the same factor (`factor_tile`, one code for
+// both kernels), stores L, and then builds X = L^-1 in the same tile:
+// one padded tile per matrix holds L below the diagonal and X^T on and
+// above it, with 1 / L[k][k] in a 128-vector. A second tile for X
+// would not fit in float64 (2 x 133 KB against the 227 KB a block can
+// have), and re-reading L's panels from global memory would put an L2
+// round trip on each panel; packing keeps both in shared memory and is one
+// design for both types (150.7 / 76.4 KB in float64 / float32). X starts as
+// the identity and is completed by row panels of 16, two barriers each:
+//   (a) one thread per column j < q0 + 16 runs the 16-step chain down the
+//       panel's rows of its column, X[k, j] *= 1 / L[k, k] and X[i, j] -=
+//       L[i, k] X[k, j] for the panel's rows i > k; columns are
+//       independent, so no shuffles. Its 16 entries come and go as 16-byte
+//       pieces of X^T's row j, and also go to a [16][128] buffer of the
+//       panel's rows of X. The twin divides by L[k, k]; here each pivot's
+//       IEEE reciprocal is taken once, off the chain, as the factor's panel
+//       solve and the twin's factor take theirs (within 1 ulp of the
+//       quotient). An IEEE division on the chain is a reciprocal, four
+//       FMAs and a range check whose slow path, a call, is taken for zero
+//       dividends: the zeros above X's diagonal in the panel's own
+//       columns, and whole identity-padded blocks in the blocked routines.
+//       Dividing, a float32 launch took 45.3 us, 30.6 with those zeros
+//       replaced by ones, and 26.8 as here (PERF.md);
+//   (b) the rows below the panel take X[i, j] -= sum_k L[i, q0+k]
+//       X[q0+k, j] (i >= q0 + 16 > j), a rank-16 update in 4x4 register
+//       tiles (at most 256) like the factor's (c), L's 4x4 blocks read as
+//       16-byte rows and X's from the buffer.
+// So every entry of X takes its updates in increasing k, one FMA each,
+// and its scaling by 1 / L[k, k] last, in the twin's order. Li is
+// written lower-triangular with exact zeros above the diagonal: a non-SPD
+// block has NaN in the lower triangle of the rows from its first bad
+// pivot on, in L and Li alike (an exactly zero pivot gives the twin's
+// infinities: x * (1 / 0) is x / 0). Bound at C = 8 float32: 3 x 512 KB
+// moved (0.47 us) and twice the factor's multiply-adds; like the factor
+// it is latency-bound: the pivot chain, (a)'s eight 16-step chains, 40
+// barriers and the matrix's passes through one SM. Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (profiler device time per launch, C = 2-16,
+// PERF.md): 26.8-26.9 us in float32 and 51.6-52.2 us in float64, against
+// 0.353 and 0.529 ms for the column loop this design replaced and
+// 0.17-0.38 / 0.19-0.52 ms for torch.linalg.cholesky + solve_triangular.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,19 +162,17 @@ __device__ __forceinline__ void vec_coords(int v, int& row, int& col) {
   col = ((group % segs) * 8 + (lane & 7)) * kVec<T>;
 }
 
+// The blocked factor of one matrix, shared by both kernels: A's lower
+// triangle is loaded into the shared tile s and factored in place (the
+// design above). On return, after a barrier, s's lower triangle holds L;
+// the entries above the diagonal hold leftovers of the panels, which are
+// never part of a result. pt and dinv are the factor's scratch.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-block_chol_kernel(const T* __restrict__ a, T* __restrict__ l) {
+__device__ __forceinline__ void factor_tile(const T* __restrict__ a, T* s, T* pt, T* dinv) {
   constexpr int ld = kLd<T>;
   constexpr int nv = kVec<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);  // [kN][ld]: the matrix, factored in place
-  T* pt = s + kN * ld;                    // [kNB][kN]: the panel below the diagonal, transposed
-  T* dinv = pt + kNB * kN;                // [kNB]: 1 / L[k][k] of the diagonal block
-
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kN * kN;
 
   // this thread's micro-tile (ti, tj), ti >= tj, numbered row by row, so the
   // first nt (nt + 1) / 2 numbers are the tiles of an nt x nt triangle
@@ -157,7 +185,7 @@ block_chol_kernel(const T* __restrict__ a, T* __restrict__ l) {
     int row, col;
     vec_coords<T>(v, row, col);
     T e[nv];
-    if (col <= row) load_n<nv>(e, a + base + row * kN + col);
+    if (col <= row) load_n<nv>(e, a + row * kN + col);
 #pragma unroll
     for (int j = 0; j < nv; ++j)
       if (col + j > row) e[j] = T(0);
@@ -241,22 +269,46 @@ block_chol_kernel(const T* __restrict__ a, T* __restrict__ l) {
     }
     __syncthreads();
   }
+}
+
+// The shared memory of both kernels: the padded tile, the factor's panel
+// (the inverse's panel rows of X after it) and 1 / L[k][k] of the diagonal
+// block (the factor's, rsqrt). block_chol_inv appends 1 / L[k][k] of all
+// 128 (IEEE) past dinv, in the kN entries kInvSmem adds.
+template <typename T> struct Smem {
+  T* s;
+  T* pt;
+  T* dinv;
+  __device__ explicit Smem(unsigned char* raw)
+      : s(reinterpret_cast<T*>(raw)), pt(s + kN * kLd<T>), dinv(pt + kNB * kN) {}
+};
+template <typename T>
+constexpr size_t kFactorSmem = (kN * kLd<T> + kNB * kN + kNB) * sizeof(T);
+template <typename T>
+constexpr size_t kInvSmem = kFactorSmem<T> + kN * sizeof(T);
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+block_chol_kernel(const T* __restrict__ a, T* __restrict__ l) {
+  constexpr int ld = kLd<T>;
+  constexpr int nv = kVec<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<T> sm(smem_raw);
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kN * kN;
+  factor_tile(a + base, sm.s, sm.pt, sm.dinv);
 
   // store: L, zeros above the diagonal
-  for (int v = tid; v < kN * kN / nv; v += kThreads) {
+  for (int v = threadIdx.x; v < kN * kN / nv; v += kThreads) {
     int row, col;
     vec_coords<T>(v, row, col);
     T e[nv];
-    load_n<nv>(e, s + row * ld + col);
+    load_n<nv>(e, sm.s + row * ld + col);
 #pragma unroll
     for (int j = 0; j < nv; ++j)
       if (col + j > row) e[j] = T(0);
     store_n<nv>(l + base + row * kN + col, e);
   }
 }
-
-template <typename T>
-constexpr size_t kFactorSmem = (kN * kLd<T> + kNB * kN + kNB) * sizeof(T);
 
 template <typename T>
 int launch_factor(const T* a, T* l, int c, void* stream) {
@@ -269,130 +321,135 @@ int launch_factor(const T* a, T* l, int c, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- block_chol_inv (B4): the column loop, until B4's redesign --------------
-
-constexpr int kTX = 32;                  // threads along a row (a warp)
-constexpr int kTY = 16;                  // warps
-constexpr int kRows = kN / kTY;          // rows held by a thread (8)
-constexpr int kCols = kN / kTX;          // columns held by a thread (4)
+// ---- block_chol_inv (B4): the same factor, then X = L^-1 by row panels -----
 
 template <typename T>
-__global__ void __launch_bounds__(kTX * kTY, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 block_chol_inv_kernel(const T* __restrict__ a, T* __restrict__ l, T* __restrict__ li) {
+  constexpr int ld = kLd<T>;
+  constexpr int nv = kVec<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* colbuf = reinterpret_cast<T*>(smem_raw);  // [2][kN]: the column (or row) in flight
-  T* lt = colbuf + 2 * kN;                      // [kN][kN]: L^T
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
+  const Smem<T> sm(smem_raw);
+  T* const s = sm.s;     // L below the diagonal; X^T on and above it
+  T* const pt = sm.pt;   // [kNB][kN]: the panel's rows of X, X[q0 + k][j] at k * kN + j
+  T* const rdiag = sm.dinv + kNB;  // [kN], in kInvSmem only
+  const int tid = threadIdx.x;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kN * kN;
+  factor_tile(a + base, s, pt, sm.dinv);
 
-  T r[kRows][kCols];
+  // store: L, zeros above the diagonal. In the tile, L's diagonal goes
+  // (as its reciprocal) to rdiag and X^T starts as the identity on and
+  // above the diagonal; each vector has one owner, so this needs no
+  // barrier of its own
+  for (int v = tid; v < kN * kN / nv; v += kThreads) {
+    int row, col;
+    vec_coords<T>(v, row, col);
+    T e[nv];
+    load_n<nv>(e, s + row * ld + col);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      r[i][j] = a[base + (ty + kTY * i) * kN + tx + kTX * j];
-
-  for (int k = 0; k < kN; ++k) {
-    T* c = colbuf + (k & 1) * kN;
-    if (tx == (k & (kTX - 1))) {  // this warp's holder of column k
-      const int jk = k / kTX;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          if (j == jk) c[ty + kTY * i] = r[i][j];
+    for (int j = 0; j < nv; ++j) {
+      if (col + j == row) rdiag[row] = T(1) / e[j];
+      if (col + j > row) e[j] = T(0);
     }
-    __syncthreads();
-    const T piv = sqrt_t(c[k]);
-    const T inv = T(1) / piv;
-    T lr[kRows], lc[kCols];
+    store_n<nv>(l + base + row * kN + col, e);
+    if (col + nv > row) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) lr[i] = c[ty + kTY * i] * inv;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) lc[j] = c[tx + kTX * j] * inv;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = ty + kTY * i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + kTX * j;
-        if (col == k) {
-          if (row == k) r[i][j] = piv;
-          else if (row > k) r[i][j] = lr[i];
-        } else if (col > k && row >= col) {
-          r[i][j] = fma_t(-lr[i], lc[j], r[i][j]);
-        }
-      }
-    }
-    if (tx == 0) {  // column k of L, kept as row k of L^T
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int row = ty + kTY * i;
-        lt[k * kN + row] = row > k ? lr[i] : (row == k ? piv : T(0));
-      }
+      for (int j = 0; j < nv; ++j)
+        if (col + j == row) e[j] = T(1);
+      store_n<nv>(s + row * ld + col, e);
     }
   }
+  __syncthreads();
 
+  for (int p = 0; p < kPanels; ++p) {
+    const int q0 = p * kNB;
+    const int w = q0 + kNB;  // X's columns that are non-zero in the panel's rows
+    // (a) the panel's rows, one thread per column j < w: forward
+    // substitution down the column's 16 entries, X[k, j] *= 1 / L[k, k],
+    // then X[i, j] -= L[i, k] X[k, j] for the panel's rows i > k, in the
+    // twin's order; the entries above X's diagonal are zeros (L lies there
+    // in the tile), so are computed but never stored
+    if (tid < w) {
+      const int j = tid;
+      T x[kNB];
+      load_n<kNB>(x, s + j * ld + q0);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+      for (int k = 0; k < kNB; ++k)
+        if (q0 + k < j) x[k] = T(0);
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int row = ty + kTY * i;
-      const int col = tx + kTX * j;
-      l[base + row * kN + col] = col <= row ? r[i][j] : T(0);
-    }
-
-  // forward substitution; X starts as the identity and ends as L^-1
+      for (int k = 0; k < kNB; ++k) {
+        x[k] *= rdiag[q0 + k];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+        for (int i = k + 1; i < kNB; ++i)
+          x[i] = fma_t(-s[(q0 + i) * ld + q0 + k], x[k], x[i]);
+      }
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      r[i][j] = (ty + kTY * i == tx + kTX * j) ? T(1) : T(0);
-  __syncthreads();  // lt is complete
-  for (int k = 0; k < kN; ++k) {
-    T* rowbuf = colbuf + (k & 1) * kN;
-    if (ty == (k & (kTY - 1))) {  // the warp holding row k finishes it
-      const int ik = k / kTY;
-      const T dk = lt[k * kN + k];
+      for (int k = 0; k < kNB; ++k) pt[k * kN + j] = q0 + k < j ? T(0) : x[k];
+      if (j < q0) {
+        store_n<kNB>(s + j * ld + q0, x);
+      } else {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        if (i == ik) {
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            r[i][j] = r[i][j] / dk;
-            rowbuf[tx + kTX * j] = r[i][j];
-          }
-        }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = ty + kTY * i;
-      if (row > k) {
-        const T lik = lt[k * kN + row];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          r[i][j] = fma_t(-lik, rowbuf[tx + kTX * j], r[i][j]);
+        for (int k = 0; k < kNB; ++k)
+          if (q0 + k >= j) s[j * ld + q0 + k] = x[k];
       }
     }
+    __syncthreads();
+
+    // (b) the rows below the panel take its rank-16 update, X[i, j] -=
+    // sum_k L[i, q0 + k] X[q0 + k, j] for i >= w > j, in increasing k: one
+    // 4x4 tile a thread (at most 256 tiles, at q0 = 48), kept as
+    // acc[v][u] = X[r0 + u][c0 + v] = X^T[c0 + v][r0 + u]; L's 4x4 blocks
+    // come in 16-byte rows, X's panel rows from pt
+    const int nc = w / kTile;
+    const int nr = (kN - w) / kTile;
+    if (tid < nr * nc) {
+      const int r0 = w + kTile * (tid / nc);
+      const int c0 = kTile * (tid % nc);
+      T acc[kTile][kTile];
+#pragma unroll
+      for (int v = 0; v < kTile; ++v) load_n<kTile>(acc[v], s + (c0 + v) * ld + r0);
+#pragma unroll
+      for (int kk = 0; kk < kNB; kk += kTile) {
+        T lb[kTile][kTile];  // lb[u][t] = L[r0 + u][q0 + kk + t]
+#pragma unroll
+        for (int u = 0; u < kTile; ++u) load_n<kTile>(lb[u], s + (r0 + u) * ld + q0 + kk);
+#pragma unroll
+        for (int t = 0; t < kTile; ++t) {
+          T y[kTile];
+          load_n<kTile>(y, pt + (kk + t) * kN + c0);
+#pragma unroll
+          for (int v = 0; v < kTile; ++v)
+#pragma unroll
+            for (int u = 0; u < kTile; ++u) acc[v][u] = fma_t(-lb[u][t], y[v], acc[v][u]);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < kTile; ++v) store_n<kTile>(s + (c0 + v) * ld + r0, acc[v]);
+    }
+    __syncthreads();
   }
+
+  // store: L^-1 = X from X^T, zeros above the diagonal. A warp's lanes take
+  // 32 consecutive columns j, each reading 16 bytes of X^T's row j and
+  // writing them down column j, so every row of Li is written in whole
+  // 128-byte lines
+  for (int v = tid; v < kN * kN / nv; v += kThreads) {
+    const int j = v & (kN - 1);
+    const int i0 = v / kN * nv;
+    T e[nv];
+    load_n<nv>(e, s + j * ld + i0);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      li[base + (ty + kTY * i) * kN + tx + kTX * j] = r[i][j];
+    for (int u = 0; u < nv; ++u) li[base + (i0 + u) * kN + j] = i0 + u >= j ? e[u] : T(0);
+  }
 }
 
 template <typename T>
 int launch_inv(const T* a, T* l, T* li, int c, void* stream) {
-  constexpr size_t smem = (2 * kN + kN * kN) * sizeof(T);
   static const cudaError_t attr = cudaFuncSetAttribute(
       block_chol_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(kInvSmem<T>));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  block_chol_inv_kernel<T><<<c, dim3(kTX, kTY), smem, static_cast<cudaStream_t>(stream)>>>(
+  block_chol_inv_kernel<T><<<c, kThreads, kInvSmem<T>, static_cast<cudaStream_t>(stream)>>>(
       a, l, li);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,11 @@ blocked routines that factor a batch of (n, n) matrices from 128x128 blocks.
 Counterpart of gpy_tpu/ops/pallas_chol.py. On a CUDA tensor `block_chol`
 and `block_chol_inv` launch the kernels in csrc/block_chol.cu (one launch
 per call, counted in `launches` and `inv_launches`); on a CPU tensor they
-run `block_chol_plain` and `block_chol_inv_plain`, the same column
-algorithm in torch ops, so that a block that is not positive definite
-gives the same NaN either way. There is no fallback from one to the other:
-a CUDA tensor launches the kernel or raises. torch.linalg.cholesky is
+run `block_chol_plain` and `block_chol_inv_plain`, the column algorithm
+in torch ops whose per-entry order of updates the kernels' panels keep, so
+that a block that is not positive definite gives the same NaN either way.
+There is no fallback from one to the other: a CUDA tensor launches the
+kernel or raises. torch.linalg.cholesky is
 never called here: it is only the yardstick `chip_smoke.py` times.
 
 The blocked routines follow the reference: n is padded with an identity
@@ -96,7 +97,11 @@ def block_chol_plain(A: torch.Tensor) -> torch.Tensor:
 
 def block_chol_inv_plain(A: torch.Tensor):
     """(L, L^-1) for (C, n, n): the factor as `block_chol_plain`, then the
-    kernel's forward substitution X[k] = B[k] / L[k, k], B[i] -= L[i, k] X[k]."""
+    forward substitution X[k] = B[k] / L[k, k], B[i] -= L[i, k] X[k], whose
+    per-entry order the kernel keeps (it multiplies by 1 / L[k, k], taken
+    once, where this divides). L^-1 is returned lower-triangular: above the
+    diagonal X is exactly 0 for an SPD block, and NaN in the rows from a bad
+    pivot on, which the kernel never computes."""
     L = block_chol_plain(A)
     n = A.shape[-1]
     X = torch.eye(n, dtype=A.dtype, device=A.device).repeat(A.shape[0], 1, 1)
@@ -104,7 +109,7 @@ def block_chol_inv_plain(A: torch.Tensor):
         X[:, k, :] = X[:, k, :] / L[:, k, k, None]
         if k + 1 < n:
             X[:, k + 1:, :] -= L[:, k + 1:, k, None] * X[:, k, None, :]
-    return L, X
+    return L, torch.tril(X)
 
 
 # --- the kernels ------------------------------------------------------------
