@@ -67,7 +67,26 @@ Phases, each printing one JSON line:
                 library at (C, 1000, 1000) float32, C = 2, 4, 8, 16: device
                 time, wall time and B2/B4 launches per call;
  15. hmc_profile -- device time by kernel over one batched logp+gradient at
-                8 chains.
+                8 chains;
+ 16. svgp     -- the SVGP flagship at bench.py:355-394's configuration,
+                uncut (N=100,000, M=512, D=8, B=4096, RBF-ARD, noise 0.1,
+                float32, fit(step_size=1e-2, natgrad_step_size=0.1)): B1
+                against its twin and timed at (512, 512, 8) and (512, 4096,
+                8); two fit(iters=100) with the counters read around the
+                first (2 B1 launches a step); after them, on one fixed
+                minibatch, the ELBO and each leaf's gradient, of the
+                model's ELBO and of the natural-gradient step's objective,
+                against a float64 twin, and the same with every matmul in
+                TF32 and with Kmn in bfloat16, each of which must exceed
+                a limit; fit(iters=500) timed three times (steps/s, ms a step); no more host syncs
+                in fit(iters=10) than in fit(iters=5); whiten=True and
+                use_natgrad=False, 20 steps each; predict on 2048 points;
+                the collapsed-bound oracles in float64 against
+                SparseGPRegression;
+ 17. svgp_profile -- device operations a step, the idle share and the top
+                device operations over one fit(iters=20);
+ 18. sparse_gp -- SparseGPRegression (VarDTC) NLML+gradient at N=50,000,
+                M=512, D=8 float32, timed, against a float64 twin.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -349,17 +368,22 @@ def run_slice(rg):
 
 
 def time_rbf_gram(rg, N, M, D):
+    """B1 at (N, M, D) float32: CUDA-event time (`ms`) and the profiler's
+    device time a launch (`device_ms`; at ~10 us the event clock reads the
+    wrapper's enqueue), beside the plain twin and the bound."""
     import torch
 
     X, X2, ls, v, _ = rbf_inputs(N, M, D, torch.float32, seed=7)
     Xs = (X / ls).contiguous()
     X2s = Xs if X2 is X else (X2 / ls).contiguous()
     ms = cuda_ms(lambda: rg.rbf_gram_cuda(Xs, X2s, v))
+    dev_ms = device_ms(lambda: rg.rbf_gram_cuda(Xs, X2s, v), kernel="rbf_gram_kernel")[0]
     plain_ms = cuda_ms(lambda: rg.rbf_gram_plain(Xs, X2s, v))
     err = float((rg.rbf_gram_cuda(Xs, X2s, v) - rg.rbf_gram_plain(Xs, X2s, v)).abs().max())
     bound_ms, bound_by = rbf_gram_bound(N, M, D, "float32")
-    return {"N": N, "M": M, "D": D, "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "library_ms": None}
+    return {"N": N, "M": M, "D": D, "dtype": "float32", "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "library_ms": None}
 
 
 def profile_objective(m, x, what=f"one objective_and_grad, N={SLICE_N} float32"):
@@ -1468,6 +1492,386 @@ def profile_hmc_eval(hmc, C=8):
             "top": [{"kernel": k[:90], "device_ms": ms, "count": c} for ms, k, c in rows[:15]]}
 
 
+# --- the SVGP flagship (bench.py:355-394) and the collapsed bound -------------
+
+SVGP_N, SVGP_M, SVGP_D, SVGP_B = 100_000, 512, 8, 4096
+SVGP_FIT = {"batchsize": SVGP_B, "step_size": 1e-2, "natgrad_step_size": 0.1}
+SVGP_WARM, SVGP_STEPS, SVGP_REPS, SVGP_PROFILE_STEPS, SVGP_SIDE_STEPS = 100, 500, 3, 20, 20
+SVGP_PRED, SPARSE_N = 2048, 50_000
+# SparseGPRegression at N=50k, float32 against a float64 twin at the same
+# raw parameters (NLML relative, gradient as max|diff| / max|ref|): ~10x the
+# first readings on an H100 (2.1e-7, 4.9e-7)
+SPARSE_REL_TOL = {"nlml": 2e-6, "grad": 5e-6}
+# the SVGP after the warm-up fit, float32 against a float64 twin at the same
+# raw parameters and minibatch: the objective relative, each leaf's gradient
+# as max|diff| / max|ref|. "elbo" is the model's ELBO (q(u) by its flat
+# Cholesky), "natgrad" the natural-gradient step's objective (q(u) by S).
+# ~10x the first readings on an H100 (value 1.8e-6; Z, q_u_mean and q(u)'s
+# factor 1.5-1.9e-3, S 2.1e-4; the hyperparameters 1.2e-6-1.9e-5); every
+# float32 matmul in TF32 read 3.4e-3 and 0.03-0.85, Kmn in bfloat16 more
+SVGP_F32_TOL = {
+    "elbo": {"value": 1.8e-5, "Z": 1.5e-2, "q_u_mean": 1.9e-2, "q_u_chol": 1.5e-2,
+             "kern.variance": 1.2e-5, "kern.lengthscale": 1.5e-4, "likelihood.variance": 2e-5},
+    "natgrad": {"value": 1.8e-5, "Z": 1.5e-2, "q_u_mean": 1.9e-2, "S": 2.1e-3,
+                "kern.variance": 2.6e-5, "kern.lengthscale": 1.9e-4, "likelihood.variance": 1.9e-5},
+}
+# the collapsed-bound oracles of tests/test_svgp.py:70-86 and :198-215
+COLLAPSED_TOL = {"one_natgrad_step": 1e-4, "ill_conditioned_M20": 1e-5}
+
+
+def svgp_data(N=SVGP_N, seed=0):
+    """bench.py:357-361: X ~ U[0,4)^8, Y = sin(x_1) + 0.1 eps, Z = M rows of
+    X by a permutation, float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.random((N, SVGP_D)).astype(np.float32) * 4.0
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((N, 1))).astype(np.float32)
+    Z = X[rng.permutation(N)[:SVGP_M]].copy()
+    return X, Y, Z
+
+
+def svgp_model(X, Y, Z, dtype, D=SVGP_D, noise=0.1):
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.likelihoods import Gaussian
+    from gpy_tpu_torch.models import SVGP
+
+    return SVGP(X, Y, Z, RBF(D, ARD=True, device="cuda", dtype=dtype),
+                Gaussian(variance=noise, device="cuda", dtype=dtype), device="cuda", dtype=dtype)
+
+
+def timed_fit(m, iters, **kw):
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = m.fit(iters=iters, **dict(SVGP_FIT, **kw))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(tr.shape == (iters,) and np.isfinite(tr).all(), f"svgp fit {kw}: non-finite ELBO trace")
+    return tr, dt
+
+
+def fit_host_syncs(m, iters):
+    """Synchronizing CUDA operations in one fit(iters=...), counted by
+    torch's sync debug mode. A count that does not grow from 5 steps to 10
+    shows that the step loop reads nothing back to the host: the fit's
+    boundaries do (the packing's index copies, the trace), and the first
+    call in a process makes one more (an H100 read 6, then 5)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            m.fit(iters=iters, **SVGP_FIT)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def rel_errors(f32, g32, f64, g64):
+    import numpy as np
+
+    return abs(f32 - f64) / abs(f64), float(np.max(np.abs(g32 - g64)) / np.max(np.abs(g64)))
+
+
+def svgp_objective(m, idx, form):
+    """The objective on the rows `idx` (the data term scaled to N) and its
+    gradient by leaf. form "elbo": the model's ELBO, the leaves its raw
+    parameters; "natgrad": the natural-gradient step's objective
+    (svgp_elbo_parts_S at S = L L'), the leaves the hyperparameters, Z,
+    q_u_mean and S, as `SVGP.fit` differentiates it."""
+    import torch
+    from gpy_tpu_torch.core.svgp import _logdet_factor, _sym
+    from gpy_tpu_torch.inference.svgp import svgp_elbo_parts_S
+    from gpy_tpu_torch.util.choleskies import flat_to_triang
+
+    Xb, Yb = m.X[idx], m.Y_normalized[idx]
+    scale = m.num_data / len(idx)
+    leaves = {p: mod._parameters[n].detach().clone().requires_grad_(True)
+              for p, mod, n in m._free_entries()}
+    if form == "natgrad":
+        L = flat_to_triang(leaves.pop("q_u_chol").detach(), m.num_inducing)
+        S = (L @ L.transpose(1, 2)).requires_grad_(True)
+        with m.bind_raw_dict(leaves):
+            datafit, kl = svgp_elbo_parts_S(m.kern, Xb, m.Z.values, m.likelihood, Yb,
+                                            leaves["q_u_mean"], _sym(S), _logdet_factor(L),
+                                            None, scale)
+        leaves["S"] = S
+    else:
+        with m.bind_raw_dict(leaves):
+            datafit, kl = m._elbo_parts(Xb, Yb, scale)
+    val = datafit - kl
+    grads = torch.autograd.grad(val, list(leaves.values()))
+    return float(val.detach()), {k: g.double().cpu().numpy() for k, g in zip(leaves, grads)}
+
+
+def leaf_errors(got, ref):
+    import numpy as np
+
+    (v, g), (v_ref, g_ref) = got, ref
+    out = {"value": abs(v - v_ref) / abs(v_ref)}
+    out.update({k: float(np.max(np.abs(g[k] - g_ref[k])) / np.max(np.abs(g_ref[k])))
+                for k in g_ref})
+    return out
+
+
+def svgp_f32_vs_f64(m32, X, Y, Z):
+    """Both objectives of `svgp_objective` on one fixed minibatch, at the
+    float32 model's parameters after the warm-up fit (q(u) away from the
+    prior, so both read Kmn, C = Lmm^-1 Kmn and Kmm's factor), against a
+    float64 twin at the same raw parameters. Then the float32 model again
+    with two lower-precision C paths, which the limits must catch: every
+    float32 matmul in TF32, and Kmn rounded to bfloat16 (the cross Gram
+    feeds only C)."""
+    import numpy as np
+    import torch
+
+    idx = torch.as_tensor(np.random.default_rng(1).permutation(SVGP_N)[:SVGP_B], device="cuda")
+    m64 = svgp_model(X, Y, Z, torch.float64)
+    m64.set_flat_raw(m32.get_flat_raw().double())
+    kern_K = m32.kern.K
+
+    def kmn_bf16(X, X2=None):
+        K = kern_K(X, X2)
+        return K if X2 is None else K.to(torch.bfloat16).to(K.dtype)
+
+    errs, low = {}, {"tf32": {}, "kmn_bf16": {}}
+    for form in SVGP_F32_TOL:
+        ref = svgp_objective(m64, idx, form)
+        errs[form] = leaf_errors(svgp_objective(m32, idx, form), ref)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            low["tf32"][form] = leaf_errors(svgp_objective(m32, idx, form), ref)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        m32.kern.K = kmn_bf16  # the instance attribute shadows the method
+        try:
+            low["kmn_bf16"][form] = leaf_errors(svgp_objective(m32, idx, form), ref)
+        finally:
+            del m32.kern.K
+    return errs, low
+
+
+def collapsed_oracles():
+    """On the card in float64: one natural-gradient step at lr = 1 and full
+    batch lands on the collapsed VarDTC bound (tests/test_svgp.py:70-86);
+    400 steps reach it at M=20 with cond(Kmm) ~ 1e16, whitened or not
+    (:198-215). Both against the port's own SparseGPRegression."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.models import SparseGPRegression
+
+    f64 = torch.float64
+    rng = np.random.default_rng(11)
+    X = np.linspace(0, 5, 20).reshape(20, 1)
+    Y = np.sin(X) + 0.2 * rng.standard_normal((20, 1))
+    Z = X[::3].copy()
+    m = svgp_model(X, Y, Z, f64, D=1)
+    before = m.log_likelihood().item()
+    m.fit(iters=1, batchsize=20, step_size=0.0, natgrad_step_size=1.0, seed=0)
+    mid = m.log_likelihood().item()
+    m.fit(iters=1, batchsize=20, step_size=0.0, natgrad_step_size=1.0, seed=1)
+    after = m.log_likelihood().item()
+    sp = SparseGPRegression(X, Y, Z=Z.copy(), noise_var=0.1, device="cuda", dtype=f64)
+    collapsed = sp.log_likelihood().item()
+    check(mid > before, f"collapsed oracle: one natgrad step did not raise the ELBO ({before} -> {mid})")
+    check(abs(after - mid) < 1e-5 * max(1.0, abs(mid)), f"collapsed oracle: a second step moved {mid} -> {after}")
+    rec = {"one_natgrad_step": {"elbo": after, "collapsed": collapsed,
+                                "abs_err": abs(after - collapsed)}}
+    X = np.linspace(0, 5, 120).reshape(120, 1)
+    Y = np.sin(X) + 0.2 * rng.standard_normal((120, 1))
+    Z = X[::6].copy()
+    sp = SparseGPRegression(X, Y, Z=Z.copy(), device="cuda", dtype=f64)
+    sp.likelihood.variance.set_value(0.2)
+    collapsed = sp.log_likelihood().item()
+    errs = {}
+    for whiten in (False, True):
+        m = svgp_model(X, Y, Z, f64, D=1, noise=0.2)
+        m.fit(iters=400, batchsize=120, step_size=0.0, natgrad_step_size=0.5, whiten=whiten, seed=0)
+        errs["whitened" if whiten else "unwhitened"] = abs(m.log_likelihood().item() - collapsed)
+    rec["ill_conditioned_M20"] = {"collapsed": collapsed, "abs_err": errs}
+    for k, tol in COLLAPSED_TOL.items():
+        err = rec[k]["abs_err"]
+        worst = max(err.values()) if isinstance(err, dict) else err
+        check(worst <= tol, f"collapsed oracle {k}: |ELBO - bound| {worst} > {tol}")
+    return rec
+
+
+def profile_svgp(m, rg, steps=SVGP_PROFILE_STEPS):
+    """Device time by operation, device operations a step and the idle share
+    over one fit(iters=steps) (its init and write-back included), and B1's
+    launches a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    m.fit(iters=steps, **SVGP_FIT)
+    torch.cuda.synchronize()
+    before = rg.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.fit(iters=steps, **SVGP_FIT)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    b1 = (rg.launches - before) / steps
+    # the optimizer's record_function range is on the device timeline too,
+    # spanning kernels that have their own rows: it is left out of the sums
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("Optimizer.")), reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    check(device_ms > 0, "svgp_profile: the profiler recorded no device time")
+    return {"phase": "svgp_profile", "what": f"one fit(iters={steps}) at N={SVGP_N}, M={SVGP_M}, "
+            f"B={SVGP_B} float32, init and write-back included",
+            "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": device_ms / steps,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "device_ops_per_step": sum(r[2] for r in rows) / steps,
+            "rbf_gram_launches_per_step": b1,
+            "top": [{"op": k[:90], "device_ms_per_step": ms / steps, "count": c}
+                    for ms, k, c in rows[:15]]}
+
+
+def run_sparse_gp():
+    """SparseGPRegression (VarDTC) NLML+gradient at N=50,000, M=512, D=8
+    float32 (BASELINE config 2's scale, bench.py's data), timed, against a
+    float64 twin at the same raw parameters."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.models import SparseGPRegression
+
+    X, Y, _ = svgp_data(N=SPARSE_N)
+    res = []
+    for dt in (torch.float32, torch.float64):
+        m = SparseGPRegression(X, Y, kernel=RBF(SVGP_D, ARD=True, device="cuda", dtype=dt),
+                               num_inducing=SVGP_M, noise_var=0.1, device="cuda", dtype=dt)
+        if dt == torch.float32:
+            x = m.optimizer_array
+            before = counters()["rbf_gram"]
+            f, g = m._objective_and_grad(x)
+            launches = counters()["rbf_gram"] - before
+            ms = host_ms(lambda: m._objective_and_grad(x), reps=5, warmup=1)
+        else:
+            f, g = m._objective_and_grad(x)
+        check(math.isfinite(f) and np.isfinite(g).all(), f"sparse_gp {dt}: non-finite NLML or gradient")
+        res += [f, g]
+        del m
+    nlml_rel, grad_rel = rel_errors(*res)
+    return {"phase": "sparse_gp", "N": SPARSE_N, "M": SVGP_M, "D": SVGP_D, "dtype": "float32",
+            "objective_and_grad_ms": ms, "rbf_gram_launches_per_objective_and_grad": launches,
+            "nlml": res[0], "nlml_f64": res[2], "nlml_rel_f32_vs_f64": nlml_rel,
+            "grad_rel_f32_vs_f64": grad_rel}
+
+
+def run_svgp(rg, smi):
+    """The flagship main path: SVGP.fit at bench.py's configuration, uncut.
+    bench.py's warm-up (two fit(iters=100)) with the counters set to 0 just
+    before the first and read just after (2 B1 launches a step: Kmm and
+    Kmn), then fit(iters=500) timed SVGP_REPS times; the profile, the
+    float64 twin, the collapsed-bound oracles, the whitened and plain
+    steps, predict, and SparseGPRegression at N=50k."""
+    import numpy as np
+    import torch
+
+    b1_checks = [check_rbf_gram(rg, SVGP_M, SVGP_M, SVGP_D, torch.float32),
+                 check_rbf_gram(rg, SVGP_M, SVGP_B, SVGP_D, torch.float32)]
+    b1_times = [time_rbf_gram(rg, SVGP_M, n, SVGP_D) for n in (SVGP_M, SVGP_B)]
+
+    X, Y, Z = svgp_data()
+    m = svgp_model(X, Y, Z, torch.float32)
+    reset_counters()
+    tr0, first_s = timed_fit(m, SVGP_WARM)
+    launches = counters()
+    check(launches["rbf_gram"] == 2 * SVGP_WARM,
+          f"svgp: {launches['rbf_gram']} rbf_gram launches in {SVGP_WARM} steps, not 2 a step")
+    check(all(v == 0 for k, v in launches.items() if k != "rbf_gram"),
+          f"svgp: unexpected launches {launches}")
+    check(tr0[-1] > tr0[0], f"svgp: the ELBO fell over the first fit ({tr0[0]} -> {tr0[-1]})")
+    timed_fit(m, SVGP_WARM)
+    f32_errs, low_errs = svgp_f32_vs_f64(m, X, Y, Z)
+    torch.cuda.empty_cache()
+    times, last = [], None
+    for _ in range(SVGP_REPS):
+        last, dt = timed_fit(m, SVGP_STEPS)
+        times.append(dt)
+    check(last[-1] > tr0[0], f"svgp: the ELBO fell over the run ({tr0[0]} -> {last[-1]})")
+    times.sort()
+    syncs = {n: fit_host_syncs(m, n) for n in (5, 10)}
+    check(syncs[10] <= syncs[5], f"svgp: host syncs grow with the steps of fit: {syncs}")
+    prof = profile_svgp(m, rg)
+
+    Xs = np.random.default_rng(2).random((SVGP_PRED, SVGP_D)).astype(np.float32) * 4.0
+    mu, var = m.predict(Xs)
+    check(mu.shape == var.shape == (SVGP_PRED, 1) and np.isfinite(mu).all()
+          and np.isfinite(var).all() and (var > 0).all(), "svgp: bad predictions")
+    truth = np.sin(Xs[:, :1])
+    rmse = float(np.sqrt(np.mean((mu - truth) ** 2)))
+    check(rmse < float(np.std(truth)), f"svgp: predictive RMSE {rmse} is no better than the mean")
+
+    def predict_cold():
+        m._posterior_cache = None
+        m.predict(Xs)
+
+    predict_ms = host_ms(lambda: m.predict(Xs), reps=10, warmup=2)
+    predict_cold_ms = host_ms(predict_cold, reps=5, warmup=1)
+    del m
+    torch.cuda.empty_cache()
+
+    side = {}
+    for label, kw in (("whiten", {"whiten": True}), ("plain", {"use_natgrad": False})):
+        ms = svgp_model(X, Y, Z, torch.float32)
+        before = rg.launches
+        tr, _ = timed_fit(ms, SVGP_SIDE_STEPS, **kw)
+        b1 = rg.launches - before
+        _, dt = timed_fit(ms, SVGP_SIDE_STEPS, **kw)
+        side[label] = {"steps_per_s": SVGP_SIDE_STEPS / dt, "elbo_first": float(tr[0]),
+                       "elbo_last": float(tr[-1]), "rbf_gram_launches": b1}
+        del ms
+    torch.cuda.empty_cache()
+    oracles = collapsed_oracles()
+    sparse = run_sparse_gp()
+    torch.cuda.empty_cache()
+
+    rec = {"phase": "svgp", "N": SVGP_N, "M": SVGP_M, "D": SVGP_D, "B": SVGP_B,
+           "dtype": "float32", "fit": SVGP_FIT, "steps_timed": SVGP_STEPS,
+           "steps_per_s_best": SVGP_STEPS / times[0],
+           "steps_per_s_median": SVGP_STEPS / times[len(times) // 2],
+           "ms_per_step_best": times[0] / SVGP_STEPS * 1e3,
+           "ms_per_step_median": times[len(times) // 2] / SVGP_STEPS * 1e3,
+           "fit_seconds": times, "first_fit_seconds": first_s, "launches": launches,
+           "rbf_gram_launches_per_step": launches["rbf_gram"] / SVGP_WARM,
+           "elbo_first": float(tr0[0]), "elbo_after_warmup": float(tr0[-1]),
+           "elbo_last": float(last[-1]),
+           "host_syncs_per_fit": syncs,
+           "device_ops_per_step": prof["device_ops_per_step"],
+           "device_idle_share": prof["device_idle_share"],
+           "f32_vs_f64_after_warmup": f32_errs, "f32_limits": SVGP_F32_TOL,
+           "lower_precision_c_vs_f64": low_errs, "collapsed": oracles, "collapsed_limits": COLLAPSED_TOL,
+           "side_paths": side, "n_pred": SVGP_PRED, "pred_rmse_vs_sin": rmse,
+           "predict_ms_posterior_cached": predict_ms, "predict_ms_with_posterior": predict_cold_ms,
+           "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "nvidia_smi": smi}
+    emit(rec)  # before the limits below, so that a failing run still shows its readings
+    emit(prof)
+    emit(sparse)
+    for form, tols in SVGP_F32_TOL.items():
+        for k, tol in tols.items():
+            v = f32_errs[form][k]
+            check(v <= tol, f"svgp: float32 vs float64, {form} {k}: rel {v} > {tol}")
+        for how, e in low_errs.items():
+            check(any(e[form][k] > tol for k, tol in tols.items()),
+                  f"svgp: the {form} limits pass a {how} C: {e[form]}")
+    for k, tol in SPARSE_REL_TOL.items():
+        v = sparse[f"{k}_rel_f32_vs_f64"]
+        check(v <= tol, f"sparse_gp: float32 vs float64 {k}: rel {v} > {tol}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1490,7 +1894,6 @@ def main() -> int:
              for n, r in reports.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sorted(reports),
           "ptxas": ptxas})
-
     checks = []
     for dtype in (torch.float32, torch.float64):
         for N, M, D in ((1024, 1024, 1), (8192, 8192, 8), (1000, 777, 16), (2048, 512, 16)):
@@ -1549,6 +1952,11 @@ def main() -> int:
     ctimes = chol_times(bc, mh, smi)
     emit(ctimes)
     emit(profile_hmc_eval(hmc))
+    del hmc, mh
+    torch.cuda.empty_cache()
+
+    # the SVGP flagship (bench.py's first number) and the collapsed bound
+    svgp_rec = run_svgp(rg, smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -1560,10 +1968,13 @@ def main() -> int:
         "replaces": "gpy_tpu/ops/pallas_gram.py:55",
         "launches": slice_rec["launches"] + sum(iter_rec[t]["launches"]["rbf_gram"]
                                                 for t in ("fused", "auto"))
-        + hmc_rec["launches"]["rbf_gram"],
-        "max_abs_err": max(c["max_abs_err"] for c in checks if c["dtype"] == "float32"),
+        + hmc_rec["launches"]["rbf_gram"] + svgp_rec["launches"]["rbf_gram"],
+        "launches_svgp": svgp_rec["launches"]["rbf_gram"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
+                           if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
+        "svgp_shapes": svgp_rec["rbf_gram_times"],
     }, {
         "name": "gram_matvec_fused", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",

@@ -113,18 +113,27 @@ class GP(Model):
         if cache is not None and cache[0] == fp:
             return cache[1]
         with torch.no_grad():
-            post, _ = self.inference_method.inference(
-                self.kern, self.X, self.likelihood, self.Y_normalized, None, self.Y_metadata)
+            post = self._compute_posterior()
         self._posterior_cache = (fp, post)
         return post
 
+    def _compute_posterior(self):
+        return self.inference_method.inference(
+            self.kern, self.X, self.likelihood, self.Y_normalized, None, self.Y_metadata)[0]
+
     # --- prediction --------------------------------------------------------
+    @property
+    def _predictive_variable(self) -> torch.Tensor:
+        """The inputs the posterior's woodbury terms refer to: X here, the
+        inducing inputs Z of a sparse GP (gpy_tpu/core/gp.py:87)."""
+        return self.X
+
     def _raw_predict(self, Xnew, full_cov=False, kern=None):
         kern = self.kern if kern is None else kern
         Xnew = self._as_data(Xnew)
         post = self.posterior
         with torch.no_grad():
-            return post._raw_predict(kern, Xnew, self.X, full_cov)
+            return post._raw_predict(kern, Xnew, self._predictive_variable, full_cov)
 
     def predict(self, Xnew, full_cov=False, Y_metadata=None, kern=None, likelihood=None,
                 include_likelihood=True):

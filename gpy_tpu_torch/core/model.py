@@ -43,12 +43,14 @@ def value_and_grad(fn, x: torch.Tensor):
     return v.detach(), torch.autograd.grad(v.sum(), x)[0]
 
 
-def _adam(x: torch.Tensor, step_size: float) -> torch.optim.Adam:
+def _adam(x, step_size: float) -> torch.optim.Adam:
     """optax.adam(step_size) of the reference: b1 0.9, b2 0.999, eps 1e-8
     outside the square root, bias-corrected. torch.optim.Adam computes the
     same update, -lr m_hat / (sqrt(v_hat) + eps), elementwise, so on a
-    (R, P) leaf each row is an independent Adam run."""
-    return torch.optim.Adam([x], lr=step_size, betas=(0.9, 0.999), eps=1e-8)
+    (R, P) leaf each row is an independent Adam run. x is one leaf or a
+    list of them (optax over a tuple of arrays)."""
+    leaves = [x] if torch.is_tensor(x) else list(x)
+    return torch.optim.Adam(leaves, lr=step_size, betas=(0.9, 0.999), eps=1e-8)
 
 
 class OptimizationResult:

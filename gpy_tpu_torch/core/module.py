@@ -452,17 +452,12 @@ class Module(nn.Module):
         self.set_raw_dict(self.flat_to_raw_dict(flat))
 
     @contextlib.contextmanager
-    def bind_flat_raw(self, flat: torch.Tensor):
-        """Evaluate the model at the raw vector `flat` (a (P,) tensor, e.g. a
-        row of a (C, P) tensor that requires grad): inside the block every
-        free parameter is its slice of `flat`, so what is computed there is
-        differentiable with respect to `flat`. Counterpart of gpy_tpu's
-        functional `with_flat_raw` (core/module.py:564). Tied followers get
-        the leader's slice (flat_to_raw_dict). Module.__setattr__ would copy
-        a value into the Parameter, so the slices go straight into
+    def _bind(self, raw: dict):
+        """Inside the block each parameter that `raw` names ({path: tensor},
+        followers of a tie included) is its tensor. Module.__setattr__ would
+        copy a value into the Parameter, so the tensors go straight into
         `_parameters`; the Parameters are put back on exit, exception or
         not."""
-        raw = self.flat_to_raw_dict(flat)
         saved = []
         try:
             for path, mod, n in self.named_params():
@@ -473,6 +468,29 @@ class Module(nn.Module):
         finally:
             for mod, n, p in reversed(saved):
                 mod._parameters[n] = p
+
+    def bind_raw_dict(self, d: dict):
+        """Evaluate the model at the raw tensors of `d` ({path: tensor}, e.g.
+        leaves that require grad): inside the block each named parameter is
+        its tensor, so what is computed there is differentiable with respect
+        to them; the others keep their values. Counterpart of gpy_tpu's
+        functional `with_raw_dict` (core/module.py:474). A tie leader's
+        tensor also binds its followers unless `d` names them."""
+        raw = dict(d)
+        for path, mod, n in self.named_params():
+            tie = mod._specs[n].tie
+            if tie is not None and tie.leader_path in d:
+                raw.setdefault(path, d[tie.leader_path])
+        return self._bind(raw)
+
+    def bind_flat_raw(self, flat: torch.Tensor):
+        """Evaluate the model at the raw vector `flat` (a (P,) tensor, e.g. a
+        row of a (C, P) tensor that requires grad): inside the block every
+        free parameter is its slice of `flat`, so what is computed there is
+        differentiable with respect to `flat`. Counterpart of gpy_tpu's
+        functional `with_flat_raw` (core/module.py:564). Tied followers get
+        the leader's slice (flat_to_raw_dict), so no tie walk is needed."""
+        return self._bind(self.flat_to_raw_dict(flat))
 
     @property
     def param_array(self) -> np.ndarray:

@@ -2,6 +2,8 @@
 from .exact import ExactGaussianInference, LatentFunctionInference
 from .iterative import IterativeGaussianInference, IterativePosterior
 from .posterior import Posterior
+from .svgp import SVGPInference
+from .var_dtc import VarDTC
 
 __all__ = ["LatentFunctionInference", "ExactGaussianInference", "IterativeGaussianInference",
-           "IterativePosterior", "Posterior"]
+           "IterativePosterior", "Posterior", "VarDTC", "SVGPInference"]

@@ -31,6 +31,11 @@ class Gaussian(Likelihood):
         s2 = self.gaussian_variance(Y_metadata)
         return -0.5 * torch.log(2 * math.pi * s2) - 0.5 * (y - link_f) ** 2 / s2
 
+    def variational_expectations(self, Y, m, v, Y_metadata=None):
+        """Closed form E_q[log N(y; f, s2)]."""
+        s2 = self.gaussian_variance(Y_metadata)
+        return -0.5 * torch.log(2 * math.pi * s2) - 0.5 * ((Y - m) ** 2 + v) / s2
+
     def predictive_values(self, mu, var, full_cov=False, Y_metadata=None):
         s2 = self.gaussian_variance(Y_metadata)
         if full_cov:

@@ -2,8 +2,8 @@
 
 Counterpart of the part of gpy_tpu/likelihoods/likelihood.py that the
 Gaussian likelihood uses. The Gauss-Hermite engine (variational
-expectations, EP moments, generic predictive moments) waits for the
-non-Gaussian slice (ROADMAP A9).
+expectations, EP moments, generic predictive moments) waits (ROADMAP A4),
+and with it the non-Gaussian slice (A9).
 """
 from __future__ import annotations
 
@@ -31,6 +31,13 @@ class Likelihood(Module):
 
     def logpdf(self, f, y, Y_metadata=None):
         return self.logpdf_link(self.gp_link.transf(f), y, Y_metadata)
+
+    def variational_expectations(self, Y, m, v, Y_metadata=None):
+        """F_n = E_{N(f; m_n, v_n)}[log p(y_n | f)]; the Gaussian likelihood
+        has it in closed form, every other one needs the quadrature."""
+        raise NotImplementedError(
+            f"{type(self).__name__}.variational_expectations needs the Gauss-Hermite engine, "
+            "not ported yet (ROADMAP A4; non-Gaussian SVGP is A9)")
 
     def predictive_values(self, mu, var, full_cov=False, Y_metadata=None):
         raise NotImplementedError

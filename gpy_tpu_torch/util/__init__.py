@@ -1,3 +1,3 @@
-from . import convert, linalg
+from . import choleskies, convert, linalg
 
-__all__ = ["linalg", "convert"]
+__all__ = ["linalg", "convert", "choleskies"]

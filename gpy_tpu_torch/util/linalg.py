@@ -36,6 +36,7 @@ __all__ = [
     "cho_solve",
     "chol_and_inv",
     "jitchol_and_inv",
+    "cholesky_or_nan",
 ]
 
 
@@ -52,6 +53,14 @@ def _chol(A: torch.Tensor):
     covers an infinite one."""
     L, info = torch.linalg.cholesky_ex(A)
     return L, (info == 0) & torch.isfinite(L.detach()).all(dim=(-2, -1))
+
+
+def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN for a matrix that is not positive definite,
+    as jnp.linalg.cholesky returns it. Unlike torch.linalg.cholesky it reads
+    no status back to the host, so a loop of them never waits on the card."""
+    L, ok = _chol(A)
+    return torch.where(ok[..., None, None], L, torch.full_like(L, float("nan")))
 
 
 def _diag_mean(A: torch.Tensor) -> torch.Tensor:
@@ -100,11 +109,9 @@ def _jitchol(A: torch.Tensor, maxtries=None, gradient_consistent: bool = True):
     if bool(ok0.all()):  # the probe is the result when every matrix is clean
         return L0, torch.zeros(A.shape[:-2], dtype=A.dtype, device=A.device)
     jit_used = _find_jitter(A.detach(), ok0, lambda Aj: _chol(Aj)[1], maxtries)
-    L, ok = _chol(_jittered(A, jit_used, gradient_consistent))
     # the reference's factorization returns NaN where it fails, which the
     # optimizer's non-finite guard turns into a rejected step
-    L = torch.where(ok[..., None, None], L, torch.full_like(L, float("nan")))
-    return L, jit_used
+    return cholesky_or_nan(_jittered(A, jit_used, gradient_consistent)), jit_used
 
 
 def _batched_chol_inv(K: torch.Tensor):
@@ -175,7 +182,7 @@ class _CholAndInv(torch.autograd.Function):
         if K.ndim > 2:
             L, Li = _batched_jitchol_inv(K) if use_ladder else _batched_chol_inv(K)
         else:
-            L = jitchol(K) if use_ladder else torch.linalg.cholesky(K)
+            L = jitchol(K) if use_ladder else cholesky_or_nan(K)
             Li = torch.linalg.solve_triangular(L, _eye(L), upper=False)
         ctx.save_for_backward(L, Li)
         return L, Li
@@ -197,7 +204,9 @@ class _CholAndInv(torch.autograd.Function):
 
 def chol_and_inv(K: torch.Tensor):
     """L = chol(K) (lower) and Li = L^-1, with a matmul-only backward.
-    K may carry leading batch dimensions (one batched factorization)."""
+    K may carry leading batch dimensions (one batched factorization). A
+    matrix that is not positive definite gives NaN, as in the reference,
+    and one matrix is factored with no host sync (`cholesky_or_nan`)."""
     return _CholAndInv.apply(K, False)
 
 

@@ -34,6 +34,7 @@ def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "chol_probe.py")
     yield os.path.join(ROOT, "matvec_probe.py")
+    yield os.path.join(ROOT, "hmc_ab.py")
 
 
 def test_port_imports_neither_jax_nor_gpy_tpu():

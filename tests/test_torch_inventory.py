@@ -29,8 +29,9 @@ SURFACES = {
         "Add", "Prod"}),
     "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {"Gaussian"}),
     "GPY_LINKS": ("gpy_tpu_torch.likelihoods.link_functions", {"Identity"}),
-    "GPY_MODELS": ("gpy_tpu_torch.models", {"GPRegression"}),
-    "GPY_INFERENCE": ("gpy_tpu_torch.inference", {"ExactGaussianInference"}),
+    "GPY_MODELS": ("gpy_tpu_torch.models", {"GPRegression", "SparseGPRegression", "SVGP"}),
+    "GPY_INFERENCE": ("gpy_tpu_torch.inference", {
+        "ExactGaussianInference", "VarDTC", "SVGPInference"}),
     "GPY_PRIORS": ("gpy_tpu_torch.core.priors", {
         "Gaussian", "Uniform", "LogGaussian", "MultivariateGaussian", "Gamma",
         "InverseGamma", "Exponential", "StudentT", "HalfT"}),
