@@ -1,6 +1,11 @@
 """Covariance functions (public names mirror gpy_tpu.kern)."""
 from .kern import Add, CombinationKernel, Kern, Prod
-from .static import Bias, Static, White
-from .stationary import OU, RBF, Exponential, ExpQuad, Matern32, Matern52, Stationary
+from .linear import Linear, LinearFull, TruncLinear, TruncLinear_inf
+from .static import Bias, Fixed, Precomputed, Static, White, WhiteHeteroscedastic
+from .stationary import (OU, RBF, Cosine, Exponential, ExpQuad, ExpQuadCosine, Matern32,
+                         Matern52, RatQuad, Sinc, Stationary)
 
-__all__ = ["Kern", "CombinationKernel", "Add", "Prod", "Stationary", "RBF", "ExpQuad", "Exponential", "OU", "Matern32", "Matern52", "Static", "White", "Bias"]
+__all__ = ["Kern", "CombinationKernel", "Add", "Prod", "Stationary", "RBF", "ExpQuad",
+           "Exponential", "OU", "Matern32", "Matern52", "Cosine", "ExpQuadCosine", "Sinc",
+           "RatQuad", "Static", "White", "Bias", "Fixed", "WhiteHeteroscedastic", "Precomputed",
+           "Linear", "LinearFull", "TruncLinear", "TruncLinear_inf"]

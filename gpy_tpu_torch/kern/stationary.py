@@ -1,12 +1,12 @@
 """Stationary kernels: K = f(r), r = scaled distance.
 
-Counterpart of gpy_tpu/kern/stationary.py:42-281 (GPy/kern/src/
+Counterpart of gpy_tpu/kern/stationary.py:42-336 (GPy/kern/src/
 stationary.py and rbf.py). RBF.K goes through ops.rbf_gram on every tensor:
 on the card that is the CUDA kernel, at every shape. The other families
-evaluate K_of_r(safe_sqrt(r2)) in torch ops; they are the families the
-fused Gram-matvec (ops/gram_matvec_fused.py) dispatches on. Their sde()
-forms, Cosine, ExpQuadCosine, Sinc, RatQuad and the RBF psi statistics wait
-for later slices.
+evaluate K_of_r(safe_sqrt(r2)) in torch ops (RatQuad its K on r2); Matern32,
+Matern52 and Exponential are also the families the fused Gram-matvec
+(ops/gram_matvec_fused.py) dispatches on. The sde() forms wait for the
+state-space slice (ROADMAP A14), the RBF psi statistics for A12.
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ from ..ops.rbf_gram import rbf_gram, scaled_dist2
 from ..util.linalg import safe_sqrt
 from .kern import Kern
 
-__all__ = ["Stationary", "RBF", "ExpQuad", "Exponential", "OU", "Matern32", "Matern52"]
+__all__ = ["Stationary", "RBF", "ExpQuad", "Exponential", "OU", "Matern32", "Matern52", "Cosine",
+           "ExpQuadCosine", "Sinc", "RatQuad"]
 
 
 class Stationary(Kern):
@@ -138,3 +139,60 @@ class Matern52(Stationary):
     def K_of_r(self, r):
         s5 = np.sqrt(5.0)
         return self.variance.values * (1.0 + s5 * r + 5.0 / 3.0 * r**2) * torch.exp(-s5 * r)
+
+
+class Cosine(Stationary):
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
+                 active_dims=None, name="Cosine", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+
+    def K_of_r(self, r):
+        return self.variance.values * torch.cos(r)
+
+
+class ExpQuadCosine(Stationary):
+    """Damped cosine. GPy: stationary.py:682-698."""
+
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, period=1.0, ARD=False,
+                 active_dims=None, name="ExpQuadCosine", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+        self._add_param("period", period, transform=Logexp())
+
+    def K_of_r(self, r):
+        return (self.variance.values * torch.exp(-2.0 * np.pi**2 * r**2)
+                * torch.cos(2.0 * np.pi * r / self.period.values))
+
+
+class Sinc(Stationary):
+    """K = v sinc(2r), the normalized sinc. GPy: stationary.py:717-731."""
+
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
+                 active_dims=None, name="Sinc", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+
+    def K_of_r(self, r):
+        return self.variance.values * torch.sinc(2.0 * r)
+
+
+class RatQuad(Stationary):
+    """Rational quadratic. GPy: stationary.py:739-776."""
+
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, power=2.0, ARD=False,
+                 active_dims=None, name="RatQuad", device=None, dtype=None):
+        super().__init__(input_dim, variance, lengthscale, ARD, active_dims, name,
+                         device=device, dtype=dtype)
+        self._add_param("power", power, transform=Logexp())
+
+    def K(self, X, X2=None):
+        # on r2: no square root to differentiate at r = 0
+        X, X2 = self._slice(X), self._slice(X2)
+        return self._K_of_r2(self._scaled_dist2(X, X2))
+
+    def K_of_r(self, r):
+        return self._K_of_r2(r**2)
+
+    def _K_of_r2(self, r2):
+        return self.variance.values * torch.exp(-self.power.values * torch.log1p(r2 / 2.0))

@@ -1,12 +1,14 @@
-"""Gaussian likelihood (closed forms everywhere).
+"""Gaussian likelihoods (closed forms everywhere).
 
-Counterpart of gpy_tpu/likelihoods/gaussian.py:18-89 (GPy/likelihoods/
-gaussian.py). HeteroscedasticGaussian waits.
+Counterpart of gpy_tpu/likelihoods/gaussian.py:18-114 (GPy/likelihoods/
+gaussian.py): Gaussian, and HeteroscedasticGaussian with one variance per
+data point.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from scipy.stats import norm
 
@@ -14,7 +16,7 @@ from ..core.transformations import Logexp
 from .likelihood import Likelihood
 from .link_functions import Identity
 
-__all__ = ["Gaussian"]
+__all__ = ["Gaussian", "HeteroscedasticGaussian"]
 
 
 class Gaussian(Likelihood):
@@ -50,3 +52,29 @@ class Gaussian(Likelihood):
         """Noise added to the Gram diagonal by exact inference, shape (N,)."""
         s2 = self.gaussian_variance(Y_metadata)
         return s2.expand(N) if s2.ndim == 0 else s2.reshape(-1)
+
+
+class HeteroscedasticGaussian(Gaussian):
+    """One noise variance per data point, gathered by
+    Y_metadata["output_index"]. GPy: likelihoods/gaussian.py
+    HeteroscedasticGaussian."""
+
+    def __init__(self, Y_metadata, gp_link=None, variance=1.0, name="het_Gauss", device=None,
+                 dtype=None):
+        num = int(np.asarray(Y_metadata["output_index"]).size)
+        Likelihood.__init__(self, gp_link or Identity(), name=name, device=device, dtype=dtype)
+        self._add_param("variance", np.full(num, float(variance)), transform=Logexp())
+
+    def gaussian_variance(self, Y_metadata=None) -> torch.Tensor:
+        v = self.variance.values
+        if Y_metadata is not None and "output_index" in Y_metadata:
+            idx = np.asarray(Y_metadata["output_index"])
+            return v[torch.as_tensor(idx, dtype=torch.long, device=v.device)]  # idx's shape
+        return v
+
+    def conditional_variance(self, f):
+        """The mean of the variances, the reference's choice."""
+        return torch.mean(self.variance.values).expand(f.shape)
+
+    def noise_diagonal(self, N, Y_metadata=None) -> torch.Tensor:
+        return self.gaussian_variance(Y_metadata).reshape(-1)

@@ -1,9 +1,9 @@
 """Likelihood base class.
 
 Counterpart of the part of gpy_tpu/likelihoods/likelihood.py that the
-Gaussian likelihood uses. The Gauss-Hermite engine (variational
-expectations, EP moments, generic predictive moments) waits (ROADMAP A4),
-and with it the non-Gaussian slice (A9).
+Gaussian likelihoods use. The Gauss-Hermite engine (variational
+expectations, EP moments, generic predictive moments) waits for the
+non-Gaussian slice, which is the first to use it (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ class Likelihood(Module):
         has it in closed form, every other one needs the quadrature."""
         raise NotImplementedError(
             f"{type(self).__name__}.variational_expectations needs the Gauss-Hermite engine, "
-            "not ported yet (ROADMAP A4; non-Gaussian SVGP is A9)")
+            "not ported yet (ROADMAP A9, which took over A4's quadrature)")
 
     def predictive_values(self, mu, var, full_cov=False, Y_metadata=None):
         raise NotImplementedError

@@ -1,9 +1,8 @@
-"""SparseGPRegression with the VarDTC bound.
+"""SparseGPRegression (VarDTC, FITC, DTC or PEP) and SparseGPRegressionMD.
 
-Counterpart of gpy_tpu/models/sparse_gp_regression.py:21-101 (GPy/models/
-sparse_gp_regression.py). FITC, DTC and PEP and the minibatched bound wait
-for ROADMAP A8, uncertain inputs (X_variance) for A12, SparseGPRegressionMD
-for A8.
+Counterpart of gpy_tpu/models/sparse_gp_regression.py:21-139 (GPy/models/
+sparse_gp_regression.py, sparse_gp_regression_md.py). Uncertain inputs
+(X_variance) wait for ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -11,11 +10,13 @@ import numpy as np
 import torch
 
 from ..core.sparse_gp import SparseGP
+from ..inference.fitc import DTC, FITC, PEP
 from ..inference.var_dtc import VarDTC
+from ..inference.var_dtc_missing import VarDTCMissingData
 from ..kern import RBF
 from ..likelihoods import Gaussian
 
-__all__ = ["SparseGPRegression"]
+__all__ = ["SparseGPRegression", "SparseGPRegressionMD"]
 
 
 def _default_Z(X, num_inducing, seed=0):
@@ -27,25 +28,25 @@ def _default_Z(X, num_inducing, seed=0):
 
 
 class SparseGPRegression(SparseGP):
-    """Sparse GP regression on the collapsed VarDTC bound.
+    """Sparse GP regression, by default on the collapsed VarDTC bound.
 
     SparseGPRegression(X, Y, num_inducing=M, device="cuda").optimize()
     mirrors the GPy call surface; device and dtype as GPRegression's.
+    infer is "vardtc", "fitc", "dtc" or "pep" (power EP at pep_alpha), or
+    an inference instance such as VarDTC_minibatch(batchsize=2048).
     """
 
     def __init__(self, X, Y, kernel=None, Z=None, num_inducing=10, mean_function=None,
                  X_variance=None, normalizer=None, noise_var=1.0, infer="vardtc",
-                 name="sparse_gp", device=None, dtype=None):
+                 pep_alpha=0.5, name="sparse_gp", device=None, dtype=None):
         if X_variance is not None:
             raise NotImplementedError("uncertain inputs (X_variance) are not ported yet "
                                       "(ROADMAP A12)")
         if isinstance(infer, str):
-            if infer in ("fitc", "dtc", "pep"):
-                raise NotImplementedError(f"infer={infer!r} is not ported yet (ROADMAP A8); "
-                                          "use 'vardtc'")
-            if infer != "vardtc":
+            methods = {"vardtc": VarDTC, "fitc": FITC, "dtc": DTC, "pep": lambda: PEP(pep_alpha)}
+            if infer not in methods:
                 raise ValueError(f"unknown infer {infer!r}")
-            infer = VarDTC()
+            infer = methods[infer]()
         if kernel is None:
             kernel = RBF(np.shape(X)[1], device=device, dtype=dtype)
         if Z is None:
@@ -53,3 +54,39 @@ class SparseGPRegression(SparseGP):
         super().__init__(X, Y, Z, kernel, Gaussian(variance=noise_var, device=device, dtype=dtype),
                          inference_method=infer, mean_function=mean_function, name=name,
                          normalizer=normalizer, device=device, dtype=dtype)
+
+
+class SparseGPRegressionMD(SparseGP):
+    """Sparse GP regression with missing data (GPy sparse_gp_regression_md.py:12).
+
+    D outputs share one GP prior, each observed on its own rows of the
+    stacked inputs: indexD[n] is row n's output. The stacked (X, Y, indexD)
+    is scattered into an (N, D) Y with NaN where an output is not observed,
+    which VarDTCMissingData reads as zero noise precision. With
+    individual_Y_noise each output has its own noise variance.
+    """
+
+    def __init__(self, X, Y, indexD, kernel=None, Z=None, num_inducing=10, normalizer=None,
+                 individual_Y_noise=False, name="sparse_gp_md", device=None, dtype=None):
+        X = np.asarray(X, dtype=float)
+        Y = np.asarray(Y, dtype=float).reshape(-1)
+        indexD = np.asarray(indexD).astype(int).reshape(-1)
+        if not X.shape[0] == Y.shape[0] == indexD.shape[0]:
+            raise ValueError("X, Y and indexD need one row each")
+        D = int(indexD.max()) + 1
+        N = X.shape[0]
+        Yfull = np.full((N, D), np.nan)
+        Yfull[np.arange(N), indexD] = Y
+        if kernel is None:
+            kernel = RBF(X.shape[1], device=device, dtype=dtype)
+        if Z is None:
+            Z = _default_Z(X, num_inducing)
+        if individual_Y_noise:
+            noise0 = np.array([np.var(Y[indexD == d]) * 0.01 + 1e-8 for d in range(D)])
+        else:
+            noise0 = float(np.var(Y)) * 0.01
+        super().__init__(X, Yfull, Z, kernel, Gaussian(variance=noise0, device=device, dtype=dtype),
+                         inference_method=VarDTCMissingData(), name=name, normalizer=normalizer,
+                         device=device, dtype=dtype)
+        self.indexD = indexD
+        self.individual_Y_noise = bool(individual_Y_noise)

@@ -25,13 +25,17 @@ _REF = _reference_lists()
 # reference list -> (module of the port, names ported so far)
 SURFACES = {
     "GPY_KERNELS": ("gpy_tpu_torch.kern", {
-        "RBF", "ExpQuad", "Exponential", "OU", "Matern32", "Matern52", "Bias", "White",
+        "RBF", "ExpQuad", "Exponential", "OU", "Matern32", "Matern52", "Cosine",
+        "ExpQuadCosine", "Sinc", "RatQuad", "Linear", "LinearFull", "TruncLinear",
+        "TruncLinear_inf", "Bias", "White", "Fixed", "WhiteHeteroscedastic", "Precomputed",
         "Add", "Prod"}),
-    "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {"Gaussian"}),
+    "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {"Gaussian", "HeteroscedasticGaussian"}),
     "GPY_LINKS": ("gpy_tpu_torch.likelihoods.link_functions", {"Identity"}),
-    "GPY_MODELS": ("gpy_tpu_torch.models", {"GPRegression", "SparseGPRegression", "SVGP"}),
+    "GPY_MODELS": ("gpy_tpu_torch.models", {
+        "GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression", "SVGP"}),
     "GPY_INFERENCE": ("gpy_tpu_torch.inference", {
-        "ExactGaussianInference", "VarDTC", "SVGPInference"}),
+        "ExactGaussianInference", "VarDTC", "VarDTC_minibatch", "VarDTCMissingData", "FITC",
+        "DTC", "PEP", "SVGPInference"}),
     "GPY_PRIORS": ("gpy_tpu_torch.core.priors", {
         "Gaussian", "Uniform", "LogGaussian", "MultivariateGaussian", "Gamma",
         "InverseGamma", "Exponential", "StudentT", "HalfT"}),
