@@ -104,7 +104,23 @@ Phases, each printing one JSON line:
                 after, posterior cached and building it;
  20. sparse_md -- SparseGPRegressionMD on the same rows over 4 outputs:
                 one NLML+gradient as in sparse_gp, and in float64 its bound
-                against the sum of the outputs' own VarDTC bounds.
+                against the sum of the outputs' own VarDTC bounds;
+ 21. classification -- BASELINE config 3 at bench.py:656-752's shapes: the
+                banana set (N=2048, D=2, float32, RBF), GPClassification
+                (EP) and GPClassificationLaplace. B1 against its twin and
+                timed at (2048, 2048, 2) and (512, 4096, 2); for each
+                model one NLML+gradient with the counters read around it
+                (1 B1 launch), timed, profiled, its host syncs, its sweeps
+                or Newton steps and a float64 twin; ms a sweep or a Newton
+                step by bench's two-length differencing; optimize(max_iters
+                =20) from the default start (seconds, evaluations, NLML
+                before and after in float32 and float64, held-out accuracy
+                on a second draw, predict ms); mean |p_EP - p_Laplace|;
+ 22. epdtc    -- EPDTC at N=4096, M=512 (Z by a permutation, bench.py:
+                757-762): one NLML+gradient as above (2 B1 launches), then
+                SparseGPClassification on the same data and Z,
+                fit(iters=100) with the counters read around it (2 B1
+                launches a step), steps/s.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -1902,6 +1918,32 @@ def run_sparse_gp(X, Y):
             "float64_identity_limits": SPARSE_EXACT_TOL}
 
 
+def timed_optimize(m, max_iters):
+    """m.optimize(max_iters=...) with the evaluations counted (an instance
+    attribute shadows _objective_and_grad) and the launch counters set to 0
+    just before it and read just after: (result, evaluations, wall seconds,
+    launches)."""
+    import torch
+
+    evals = [0]
+    objective_and_grad = m._objective_and_grad
+
+    def counted(x):
+        evals[0] += 1
+        return objective_and_grad(x)
+
+    m._objective_and_grad = counted
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = m.optimize(max_iters=max_iters)
+        torch.cuda.synchronize()
+    finally:
+        del m._objective_and_grad
+    return res, evals[0], time.perf_counter() - t0, counters()
+
+
 def optimize_run(m, Xs, x0, f64_at):
     """m.optimize(max_iters=100) from the raw vector x0: wall seconds,
     evaluations (counted by an instance attribute that shadows
@@ -1912,30 +1954,12 @@ def optimize_run(m, Xs, x0, f64_at):
     predict at the held-out Xs before and after, RMSE against sin(x_1),
     the posterior cached and building it."""
     import numpy as np
-    import torch
 
     truth = np.sin(Xs[:, :1])
     f0, _ = m._objective_and_grad(x0)
     mu0, _ = m.predict(Xs)
     syncs = host_syncs(lambda: m._objective_and_grad(x0))
-    evals = [0]
-    objective_and_grad = m._objective_and_grad
-
-    def counted(x):
-        evals[0] += 1
-        return objective_and_grad(x)
-
-    m._objective_and_grad = counted  # the instance attribute shadows the method
-    reset_counters()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        res = m.optimize(max_iters=SPARSE_OPT_ITERS)
-        torch.cuda.synchronize()
-    finally:
-        del m._objective_and_grad
-    wall = time.perf_counter() - t0
-    launches = counters()
+    res, evals, wall, launches = timed_optimize(m, SPARSE_OPT_ITERS)
     x1 = m.optimizer_array
     f1, g1 = m._objective_and_grad(x1)
     mu1, var1 = m.predict(Xs)
@@ -1949,8 +1973,8 @@ def optimize_run(m, Xs, x0, f64_at):
     check(all(v == 0 for k, v in launches.items() if k != "rbf_gram"),
           f"sparse_optimize: unexpected launches {launches}")
     return {
-        "dtype": str(m.dtype).replace("torch.", ""), "seconds": wall, "evaluations": evals[0],
-        "iterations": res.n_iters, "ms_per_evaluation": wall / evals[0] * 1e3,
+        "dtype": str(m.dtype).replace("torch.", ""), "seconds": wall, "evaluations": evals,
+        "iterations": res.n_iters, "ms_per_evaluation": wall / evals * 1e3,
         "host_syncs_per_evaluation": len(syncs), "host_sync_sites": sorted(set(syncs)),
         "scipy_message": res.status, "success": res.success,
         "rbf_gram_launches": launches["rbf_gram"], "nlml_start": f0, "nlml_end": f1,
@@ -2079,6 +2103,301 @@ def run_sparse(rg, smi):
                   f"sparse_optimize {name}: the fitted model predicts worse than the start")
     launches = sum(r["rbf_gram_launches"] for r in
                    list(sp["methods"].values()) + list(opt["runs"].values()) + [md])
+    return {"launches": launches, "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
+
+
+# --- non-Gaussian inference: GP classification (BASELINE config 3) ----------
+
+# bench.py:656-762: EP and Laplace at N=2048 on the banana set, D=2, RBF,
+# float32; EPDTC at N=4096 with M=512 inducing rows by a permutation
+CLS_N, CLS_D, EPDTC_N, EPDTC_M = 2048, 2, 4096, 512
+CLS_OPT_ITERS, CLS_FIT_ITERS = 20, 100
+# bench.py's two-length differencing: epsilon=0 (tol=0) at these two counts
+CLS_SWEEPS, CLS_NEWTON = (4, 20), (2, 10)
+# float32 against a float64 twin at the same raw parameters, the start's
+# (NLML relative, gradient as max|diff| / max|ref|): ~10x the first readings
+# on an H100 (EP 2.79e-5 / 1.28e-5, its float32 sites stopping after 31
+# sweeps where float64's stop after 24; Laplace 2.9e-7 / 1.14e-4; EPDTC
+# 8.1e-7 / 1.64e-4)
+CLS_REL_TOL = {
+    "ep": {"nlml": 2.8e-4, "grad": 1.3e-4},
+    "laplace": {"nlml": 3e-6, "grad": 1.2e-3},
+    "epdtc": {"nlml": 8e-6, "grad": 1.7e-3},
+}
+# EP and Laplace approximate one posterior: at the start's hyperparameters,
+# mean |p_EP - p_Laplace| on the held-out draw below the reference's limit
+# (tests/test_inference_approx.py:68-71)
+CLS_EP_VS_LAPLACE = 0.12
+# the float64 fits classify the held-out draw of the banana set (its two
+# crescents overlap little)
+CLS_F64_ACCURACY = 0.95
+
+
+def banana(rng, n):
+    """bench.py:669-678: two interleaved crescents, float32, Y in {0, 1}."""
+    import numpy as np
+
+    th = rng.uniform(0, np.pi, n).astype(np.float32)
+    rr = (2.0 + 0.25 * rng.standard_normal(n)).astype(np.float32)
+    c = rng.integers(0, 2, n)
+    x1 = np.where(c, rr * np.cos(th), 1.0 - rr * np.cos(th))
+    x2 = np.where(c, rr * np.sin(th) - 0.5, 0.5 - rr * np.sin(th))
+    return np.stack([x1, x2], 1).astype(np.float32), c.reshape(-1, 1).astype(np.float32)
+
+
+def cls_model(X, Y, dtype, method):
+    """GPClassification (EP) or GPClassificationLaplace with bench.py's
+    default RBF(2)."""
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.models import GPClassification, GPClassificationLaplace
+
+    cls = GPClassification if method == "ep" else GPClassificationLaplace
+    return cls(X, Y, kernel=RBF(CLS_D, device="cuda", dtype=dtype), device="cuda", dtype=dtype)
+
+
+def epdtc_model(X, Y, Z, dtype):
+    from gpy_tpu_torch.core.sparse_gp import SparseGP
+    from gpy_tpu_torch.inference import EPDTC
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.likelihoods import Bernoulli
+
+    return SparseGP(X, Y, Z, RBF(CLS_D, device="cuda", dtype=dtype),
+                    Bernoulli(device="cuda", dtype=dtype), inference_method=EPDTC(),
+                    device="cuda", dtype=dtype)
+
+
+def loop_count(inf):
+    """The last evaluation's EP sweeps (EP, EPDTC) or Newton steps (Laplace)."""
+    return inf.last_sweeps if hasattr(inf, "last_sweeps") else inf.last_newton_steps
+
+
+def loop_record(m, m64):
+    """The site loop's sweeps or the Newton steps of the last evaluation,
+    float32 and its float64 twin, and the last change each read against its
+    stopping rule."""
+    inf, inf64 = m.inference_method, m64.inference_method
+    key = "sweeps" if hasattr(inf, "last_sweeps") else "newton_steps"
+    count = loop_count(inf)
+    return {key: count, f"{key}_f64": loop_count(inf64), "max_iters": inf.max_iters,
+            "last_change": float(inf.last_change), "last_change_f64": float(inf64.last_change),
+            "stop_below": getattr(inf, "epsilon", getattr(inf, "tol", None)),
+            "ran_to_max_iters": count >= inf.max_iters}
+
+
+def iteration_ms(m, method):
+    """ms a sweep (EP) or a Newton step (Laplace) at the model's K by
+    bench.py's two-length differencing (bench.py:700-752): the loop with
+    epsilon=0 (tol=0) at two counts, timed, the difference over the
+    iterations each ran (a Laplace search may stop early at an exact zero
+    change)."""
+    import torch
+    from gpy_tpu_torch.inference import EP, Laplace
+
+    with torch.no_grad():
+        K = m.kern.K(m.X) + 1e-8 * torch.eye(m.num_data, dtype=m.dtype, device=m.device)
+    lik, Y = m.likelihood, m.Y
+    if method == "ep":
+        runs = {k: (lambda k=k: EP(epsilon=0.0, max_iters=k)._converge_sites(K, lik, Y, None)[2])
+                for k in CLS_SWEEPS}
+    else:
+        f0 = torch.zeros_like(Y)
+        runs = {k: (lambda k=k: Laplace(tol=0.0, max_iters=k)._find_mode(K, lik, Y, None, f0)[1])
+                for k in CLS_NEWTON}
+    its = {k: f() for k, f in runs.items()}
+    ms = {k: host_ms(f, reps=3, warmup=1) for k, f in runs.items()}
+    lo, hi = sorted(runs)
+    per = (ms[hi] - ms[lo]) / (its[hi] - its[lo]) if its[hi] > its[lo] else None
+    return {"iterations_run": its, "loop_ms": ms, "ms_per_iteration": per}
+
+
+def cls_optimize(m, Xte, Yte, f64_at):
+    """optimize(max_iters=CLS_OPT_ITERS) from the default start: seconds,
+    evaluations, B1 launches, the NLML before and after (the model's own,
+    and float64's at both raw vectors by f64_at), the loop count and last
+    change of the last evaluation, held-out accuracy before and after,
+    predict ms. The
+    predictions before it are returned too, for the EP-Laplace check."""
+    import numpy as np
+    from gpy_tpu_torch.core.module import Param
+
+    x0 = m.optimizer_array
+    f0, _ = m._objective_and_grad(x0)
+    p0 = m.predict(Xte)[0]
+    res, evals, wall, launches = timed_optimize(m, CLS_OPT_ITERS)
+    x1 = m.optimizer_array
+    loops, change = loop_count(m.inference_method), float(m.inference_method.last_change)
+    f64_start, f64_end = f64_at(x0), f64_at(x1)
+    f1, g1 = m._objective_and_grad(x1)  # f64_at may be the model's own
+    p1, var1 = m.predict(Xte)
+
+    def predict_cold():
+        m._posterior_cache = None
+        m.predict(Xte)
+
+    check(all(v == 0 for k, v in launches.items() if k != "rbf_gram"),
+          f"classification optimize: unexpected launches {launches}")
+    return {
+        "seconds": wall, "evaluations": evals, "iterations": res.n_iters,
+        "ms_per_evaluation": wall / evals * 1e3, "scipy_message": res.status,
+        "rbf_gram_launches": launches["rbf_gram"], "nlml_start": f0, "nlml_end": f1,
+        "nlml_start_f64": f64_start, "nlml_end_f64": f64_end,
+        "loop_count_last_evaluation": loops, "last_change_last_evaluation": change,
+        "params_end": {p: Param(mod, n).numpy().tolist() for p, mod, n in m.named_params()},
+        "heldout_accuracy_start": float(np.mean((p0 > 0.5) == (Yte > 0.5))),
+        "heldout_accuracy_end": float(np.mean((p1 > 0.5) == (Yte > 0.5))),
+        "predict_ms_posterior_cached": host_ms(lambda: m.predict(Xte), reps=10, warmup=2),
+        "predict_ms_with_posterior": host_ms(predict_cold, reps=3, warmup=1),
+        "finite": bool(math.isfinite(f1) and np.isfinite(g1).all() and np.isfinite(p1).all()
+                       and np.isfinite(var1).all()),
+        "p_heldout_start": p0,
+    }
+
+
+def run_classification(X, Y, Xte, Yte):
+    """EP (GPClassification) and Laplace (GPClassificationLaplace) at N=2048:
+    one float32 NLML+gradient each (one_evaluation) with its host syncs and
+    loop count, the cost of a sweep or a Newton step, and an optimize in
+    float32 and in its float64 twin from the same start."""
+    import numpy as np
+    import torch
+
+    recs, p = {}, {}
+    for method in ("ep", "laplace"):
+        m = cls_model(X, Y, torch.float32, method)
+        x = m.optimizer_array
+        rec, m64 = one_evaluation(m, lambda: cls_model(X, Y, torch.float64, method),
+                                  f"classification {method}, N={CLS_N} float32")
+        rec.update(loop_record(m, m64))
+        syncs = host_syncs(lambda: m._objective_and_grad(x))
+        rec.update({"host_syncs_per_evaluation": len(syncs),
+                    "host_sync_sites": sorted(set(syncs))})
+        rec.update(iteration_ms(m, method))
+
+        def f64_at(xx):
+            return m64._objective_and_grad(xx)[0]
+
+        rec["optimize"] = opt = cls_optimize(m, Xte, Yte, f64_at)
+        p[method] = opt.pop("p_heldout_start")
+        m64.set_flat_raw(x)
+        rec["optimize_f64"] = cls_optimize(m64, Xte, Yte, f64_at)
+        rec["optimize_f64"].pop("p_heldout_start")
+        recs[method] = rec
+        del m, m64
+        torch.cuda.empty_cache()
+    return {"phase": "classification", "N": CLS_N, "D": CLS_D, "dtype": "float32",
+            "kernel": "RBF(2), variance 1, lengthscale 1 at the start", "methods": recs,
+            "mean_abs_p_ep_vs_laplace_at_start": float(np.mean(np.abs(p["ep"] - p["laplace"]))),
+            "f32_limits": {k: CLS_REL_TOL[k] for k in ("ep", "laplace")}}
+
+
+def run_sparse_classification(X, Y, Z):
+    """EPDTC at N=4096, M=512 (one_evaluation, its sweeps and host syncs),
+    then SparseGPClassification (the SVGP bound with Bernoulli's quadrature)
+    on the same data and Z: fit(iters=100) with the counters set to 0 just
+    before it and read just after, then timed again. In float64: in float32
+    its constructor's Cholesky of K(Z) + 1e-6 I, which starts q(u) at the
+    prior, fails on these 512 rows of a 2-D set at lengthscale 1 (the
+    reference's constructor computes the same)."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.models import SparseGPClassification
+
+    m = epdtc_model(X, Y, Z, torch.float32)
+    x = m.optimizer_array
+    rec, m64 = one_evaluation(m, lambda: epdtc_model(X, Y, Z, torch.float64),
+                              f"epdtc, N={EPDTC_N}, M={EPDTC_M} float32")
+    rec.update(loop_record(m, m64))
+    rec["host_syncs_per_evaluation"] = len(host_syncs(lambda: m._objective_and_grad(x)))
+    del m, m64
+    torch.cuda.empty_cache()
+
+    sm = SparseGPClassification(X, Y, Z=Z, device="cuda", dtype=torch.float64)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr0 = sm.fit(iters=CLS_FIT_ITERS)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr1 = sm.fit(iters=CLS_FIT_ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec.update({"phase": "epdtc", "N": EPDTC_N, "M": EPDTC_M, "D": CLS_D, "dtype": "float32",
+                "f32_limits": CLS_REL_TOL["epdtc"], "sparse_gp_classification": {
+                    "dtype": "float64", "batchsize": min(256, EPDTC_N), "iters": CLS_FIT_ITERS,
+                    "first_fit_seconds": first_s, "steps_per_s": CLS_FIT_ITERS / dt,
+                    "ms_per_step": dt / CLS_FIT_ITERS * 1e3, "launches": launches,
+                    "elbo_first": float(tr0[0]), "elbo_last": float(tr1[-1]),
+                    "finite": bool(np.isfinite(tr0).all() and np.isfinite(tr1).all())}})
+    del sm
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_cls(rg, smi):
+    """BASELINE config 3 on the card: B1 checked and timed at the
+    classification shapes, then the classification and epdtc phases. Every
+    record is printed before the limits are applied. Returns B1's launches
+    on these paths, its checks and its times."""
+    import numpy as np
+    import torch
+
+    shapes = ((CLS_N, CLS_N, CLS_D), (EPDTC_M, EPDTC_N, CLS_D))
+    b1_checks = [check_rbf_gram(rg, *s, dt) for s in shapes
+                 for dt in (torch.float32, torch.float64)]
+    b1_times = [time_rbf_gram(rg, *s) for s in shapes]
+    rng = np.random.default_rng(0)
+    X, Y = banana(rng, CLS_N)
+    Xte, Yte = banana(rng, CLS_N)  # a second draw, held out
+    X4, Y4 = banana(rng, EPDTC_N)
+    Z = X4[rng.permutation(EPDTC_N)[:EPDTC_M]].copy()  # bench.py:757-762
+
+    cls = run_classification(X, Y, Xte, Yte)
+    cls.update({"rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times, "nvidia_smi": smi})
+    emit(cls)
+    sp = run_sparse_classification(X4, Y4, Z)
+    sp["nvidia_smi"] = smi
+    emit(sp)
+
+    f32 = dict(cls["methods"], epdtc=sp)
+    for name, tols in CLS_REL_TOL.items():
+        for k, tol in tols.items():
+            v = f32[name][f"{k}_rel_f32_vs_f64"]
+            check(v <= tol, f"classification {name}: float32 vs float64 {k}: rel {v} > {tol}")
+    for name, want in (("ep", 1), ("laplace", 1), ("epdtc", 2)):
+        got = f32[name]["rbf_gram_launches"]
+        check(got == want, f"classification {name}: {got} rbf_gram launches an evaluation, "
+                           f"not {want}")
+    for name, r in cls["methods"].items():
+        for run in ("optimize", "optimize_f64"):
+            o = r[run]
+            what = f"classification {name} {run}"
+            check(o["finite"], f"{what}: non-finite NLML, gradient or prediction")
+            check(o["nlml_end_f64"] < o["nlml_start_f64"],
+                  f"{what}: the NLML did not fall as float64 evaluates it "
+                  f"({o['nlml_start_f64']} -> {o['nlml_end_f64']})")
+            check(o["rbf_gram_launches"] == o["evaluations"],
+                  f"{what}: {o['rbf_gram_launches']} rbf_gram launches in "
+                  f"{o['evaluations']} evaluations")
+        acc = r["optimize_f64"]["heldout_accuracy_end"]
+        check(acc > CLS_F64_ACCURACY, f"classification {name}: the float64 fit's held-out "
+                                      f"accuracy {acc} <= {CLS_F64_ACCURACY}")
+    d = cls["mean_abs_p_ep_vs_laplace_at_start"]
+    check(d < CLS_EP_VS_LAPLACE, f"classification: mean |p_EP - p_Laplace| {d} >= "
+                                 f"{CLS_EP_VS_LAPLACE}")
+    s = sp["sparse_gp_classification"]
+    check(s["finite"] and s["elbo_last"] > s["elbo_first"],
+          f"sparse_gp_classification: the ELBO did not rise ({s['elbo_first']} -> "
+          f"{s['elbo_last']})")
+    check(s["launches"]["rbf_gram"] == 2 * CLS_FIT_ITERS
+          and all(v == 0 for k, v in s["launches"].items() if k != "rbf_gram"),
+          f"sparse_gp_classification: launches {s['launches']} in {CLS_FIT_ITERS} steps, "
+          "not 2 rbf_gram a step")
+    launches = (sum(r["rbf_gram_launches"] + r["optimize"]["rbf_gram_launches"]
+                    + r["optimize_f64"]["rbf_gram_launches"] for r in cls["methods"].values())
+                + sp["rbf_gram_launches"] + s["launches"]["rbf_gram"])
     return {"launches": launches, "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
 
 
@@ -2268,6 +2587,8 @@ def main() -> int:
     # GPs at BASELINE config 2's scale
     svgp_rec = run_svgp(rg, smi)
     sparse_rec = run_sparse(rg, smi)
+    # non-Gaussian inference at BASELINE config 3's shapes
+    cls_rec = run_cls(rg, smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -2280,14 +2601,17 @@ def main() -> int:
         "launches": slice_rec["launches"] + sum(iter_rec[t]["launches"]["rbf_gram"]
                                                 for t in ("fused", "auto"))
         + hmc_rec["launches"]["rbf_gram"] + svgp_rec["launches"]["rbf_gram"]
-        + sparse_rec["launches"],
+        + sparse_rec["launches"] + cls_rec["launches"],
         "launches_svgp": svgp_rec["launches"]["rbf_gram"],
         "launches_sparse": sparse_rec["launches"],
+        "launches_classification": cls_rec["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
-                           + sparse_rec["rbf_gram_checks"] if c["dtype"] == "float32"),
+                           + sparse_rec["rbf_gram_checks"] + cls_rec["rbf_gram_checks"]
+                           if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
         "svgp_shapes": svgp_rec["rbf_gram_times"], "sparse_shapes": sparse_rec["rbf_gram_times"],
+        "classification_shapes": cls_rec["rbf_gram_times"],
     }, {
         "name": "gram_matvec_fused", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",

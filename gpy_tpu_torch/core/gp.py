@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, resolve_dtype
+from ..inference.ep import EP
 from ..inference.exact import ExactGaussianInference
 from ..likelihoods.gaussian import Gaussian
 from .model import Model
@@ -41,9 +42,6 @@ class GP(Model):
             raise NotImplementedError("output normalizers are not ported yet (ROADMAP A17)")
         if mean_function is not None:
             raise NotImplementedError("mean functions are not ported yet (ROADMAP A17)")
-        if inference_method is None and not isinstance(likelihood, Gaussian):
-            raise NotImplementedError(
-                "non-Gaussian likelihoods (EP) are not ported yet (ROADMAP A9)")
         super().__init__(name=name, device=device, dtype=dtype)
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
@@ -65,7 +63,10 @@ class GP(Model):
         self.Y_metadata = Y_metadata
         self.normalizer = None
         self.mean_function = None
-        self.inference_method = inference_method or ExactGaussianInference()
+        if inference_method is None:  # GPy: core/gp.py:97-102
+            inference_method = (ExactGaussianInference() if isinstance(likelihood, Gaussian)
+                                else EP())
+        self.inference_method = inference_method
         self.kern = kernel
         self.likelihood = likelihood
         self._data_version = 0
@@ -156,6 +157,23 @@ class GP(Model):
         with torch.no_grad():
             qs = lik.predictive_quantiles(mu, var, quantiles, Y_metadata=Y_metadata)
         return [q.cpu().numpy() for q in qs]
+
+    # --- optimization ----------------------------------------------------------
+    def optimize(self, optimizer="lbfgsb", **kwargs):
+        """Model.optimize between the inference's hooks (gpy_tpu/core/gp.py:
+        591-606). Alternated EP converges its sites once, here, at the
+        current hyperparameters, and holds them through the run; the
+        posterior cache is dropped on both sides of it."""
+        self.inference_method.on_optimization_start()
+        if getattr(self.inference_method, "_frozen", False):
+            self._posterior_cache = None
+            _ = self.posterior
+        try:
+            return super().optimize(optimizer=optimizer, **kwargs)
+        finally:
+            self.inference_method.on_optimization_end()
+            if getattr(self.inference_method, "ep_mode", None) == "alternated":
+                self._posterior_cache = None
 
     # --- data mutation ------------------------------------------------------
     def set_XY(self, X=None, Y=None):

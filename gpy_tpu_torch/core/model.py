@@ -132,15 +132,27 @@ class Model(Module):
         at `step_size`, the reference's optax loop). 'lbfgs_device' and the
         other optax optimizers are not ported yet.
         """
-        if optimizer == "adam":
-            return self._optimize_adam(max_iters, step_size, messages)
-        if optimizer in _DEVICE_LOOPS:
+        if optimizer != "adam" and optimizer in _DEVICE_LOOPS:
             raise NotImplementedError(
                 f"optimizer {optimizer!r} is not ported yet (ROADMAP A2: the "
                 "on-device loops become torch.optim); use 'adam', 'lbfgsb' or 'scg'")
-        if optimizer == "scg":
-            return self._optimize_scg(max_iters, messages, gtol, ftol)
-        return self._optimize_scipy(optimizer, max_iters, messages, gtol, ftol)
+        self._optimization_hooks("on_optimization_start")
+        try:
+            if optimizer == "adam":
+                return self._optimize_adam(max_iters, step_size, messages)
+            if optimizer == "scg":
+                return self._optimize_scg(max_iters, messages, gtol, ftol)
+            return self._optimize_scipy(optimizer, max_iters, messages, gtol, ftol)
+        finally:
+            self._optimization_hooks("on_optimization_end")
+
+    def _optimization_hooks(self, name):
+        """Call `name` on every submodule that has it (gpy_tpu/core/model.py:
+        108-125): the likelihoods and kernels of the tree, not the model."""
+        for m in self.modules():
+            hook = getattr(m, name, None)
+            if hook is not None and m is not self:
+                hook()
 
     def _optimize_adam(self, max_iters, step_size, messages):
         """gpy_tpu/core/model.py:311-355: max_iters Adam steps; f_opt is the

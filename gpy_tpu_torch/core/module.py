@@ -492,6 +492,15 @@ class Module(nn.Module):
         the leader's slice (flat_to_raw_dict), so no tie walk is needed."""
         return self._bind(self.flat_to_raw_dict(flat))
 
+    def stop_gradient(self):
+        """Inside the block every parameter is its detached value, so what is
+        computed there builds no graph back to the parameters: the
+        counterpart of gpy_tpu's functional `stop_gradient` copy
+        (core/module.py:512-521), which fixed-point inference (EP's sites,
+        Laplace's mode) runs its loops on. Fixed parameters too."""
+        return self._bind({path: mod._parameters[n].detach()
+                           for path, mod, n in self.named_params()})
+
     @property
     def param_array(self) -> np.ndarray:
         """Constrained values of all parameters (GPy compat)."""

@@ -99,6 +99,13 @@ class LatentFunctionInference:
     def marginal_likelihood(self, kern, X, likelihood, Y, mean_function=None, Y_metadata=None):
         return self.inference(kern, X, likelihood, Y, mean_function, Y_metadata)[1]
 
+    # hooks GP.optimize calls around every optimizer run (EP's alternated mode)
+    def on_optimization_start(self):
+        pass
+
+    def on_optimization_end(self):
+        pass
+
     # --- the batched form: C models of one data set, one factorization ----
     # the ROADMAP item under which an inference without a batched form gets one
     batched_roadmap_item = "A10"

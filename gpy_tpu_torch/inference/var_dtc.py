@@ -69,8 +69,8 @@ def _precision(likelihood, N, mean_function, Y_metadata):
     if mean_function is not None:
         raise NotImplementedError("VarDTC with a mean function: subtract it from Y")
     if not hasattr(likelihood, "noise_diagonal"):
-        raise NotImplementedError("VarDTC needs a Gaussian likelihood; sparse "
-                                  "classification is not ported yet (ROADMAP A9)")
+        raise NotImplementedError("VarDTC needs a Gaussian likelihood; for sparse "
+                                  "classification use EPDTC or SparseGPClassification")
     return 1.0 / likelihood.noise_diagonal(N, Y_metadata)
 
 

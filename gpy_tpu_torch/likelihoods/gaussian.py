@@ -33,10 +33,26 @@ class Gaussian(Likelihood):
         s2 = self.gaussian_variance(Y_metadata)
         return -0.5 * torch.log(2 * math.pi * s2) - 0.5 * (y - link_f) ** 2 / s2
 
+    def conditional_mean(self, f):
+        return self.gp_link.transf(f)
+
+    def conditional_variance(self, f):
+        return self.variance.values.expand(f.shape)
+
     def variational_expectations(self, Y, m, v, Y_metadata=None):
         """Closed form E_q[log N(y; f, s2)]."""
         s2 = self.gaussian_variance(Y_metadata)
         return -0.5 * torch.log(2 * math.pi * s2) - 0.5 * ((Y - m) ** 2 + v) / s2
+
+    def moments_match_ep(self, Y, tau, v, Y_metadata=None, degree=None):
+        """The site moments in closed form."""
+        s2 = self.gaussian_variance(Y_metadata)
+        sigma2 = 1.0 / tau
+        mu = v / tau
+        Y = self._as_tensor(Y, mu)
+        sum_var = s2 + sigma2
+        logZ = -0.5 * torch.log(2 * math.pi * sum_var) - 0.5 * (Y - mu) ** 2 / sum_var
+        return logZ, mu + sigma2 * (Y - mu) / sum_var, sigma2 - sigma2**2 / sum_var
 
     def predictive_values(self, mu, var, full_cov=False, Y_metadata=None):
         s2 = self.gaussian_variance(Y_metadata)
@@ -44,9 +60,24 @@ class Gaussian(Likelihood):
             return mu, var + s2 * torch.eye(mu.shape[0], dtype=mu.dtype, device=mu.device)
         return mu, var + s2
 
-    def predictive_quantiles(self, mu, var, quantiles, Y_metadata=None):
+    def predictive_mean(self, mu, var, Y_metadata=None):
+        return mu
+
+    def predictive_variance(self, mu, var, predictive_mean=None, Y_metadata=None):
+        return var + self.gaussian_variance(Y_metadata)
+
+    def predictive_quantiles(self, mu, var, quantiles, Y_metadata=None, **kw):
         sd = torch.sqrt(var + self.gaussian_variance(Y_metadata))
         return [mu + float(norm.ppf(q / 100.0)) * sd for q in quantiles]
+
+    def log_predictive_density(self, y_test, mu_star, var_star, Y_metadata=None):
+        t = var_star + self.gaussian_variance(Y_metadata)
+        y = self._as_tensor(y_test, mu_star)
+        return -0.5 * torch.log(2 * math.pi * t) - 0.5 * (y - mu_star) ** 2 / t
+
+    def samples_given_f(self, gen, f, Y_metadata=None):
+        eps = torch.randn(f.shape, generator=gen, dtype=f.dtype, device=f.device)
+        return f + torch.sqrt(self.gaussian_variance(Y_metadata)) * eps
 
     def noise_diagonal(self, N, Y_metadata=None) -> torch.Tensor:
         """Noise added to the Gram diagonal by exact inference, shape (N,)."""

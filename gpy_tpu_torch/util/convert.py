@@ -3,7 +3,10 @@
 Both packages key a model's raw parameters by the same dotted paths
 (`kern.variance`, `kern.lengthscale`, `likelihood.variance`, ...). The
 caller converts gpy_tpu's `get_raw_dict()` to numpy; nothing here imports
-the JAX package.
+the JAX package. Fixed parameters are in the dict too (StudentT's
+`deg_free`, Gamma's `beta`) and cross like the others, as raw values under
+the same transforms (Logexp for every likelihood parameter); the fixed
+flags are set by the constructors, equal in both packages.
 """
 from __future__ import annotations
 

@@ -37,6 +37,8 @@ __all__ = [
     "chol_and_inv",
     "jitchol_and_inv",
     "cholesky_or_nan",
+    "solve_lu_safe",
+    "slogdet_lu_safe",
 ]
 
 
@@ -268,6 +270,19 @@ def pdinv(A: torch.Tensor):
     Ai = Li.T @ Li
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
     return Ai, L, Li, logdet
+
+
+def solve_lu_safe(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """General LU solve, gpy_tpu/util/linalg.py:72-79. The reference casts
+    float64 to float32 there on a TPU (`_lu_dtype`), whose float64 LU fails
+    to compile; the card has a float64 LU, so nothing is cast."""
+    return torch.linalg.solve(A, b)
+
+
+def slogdet_lu_safe(A: torch.Tensor):
+    """(sign, log|det A|) by LU, gpy_tpu/util/linalg.py:82-88, with no
+    float32 cast (see solve_lu_safe)."""
+    return torch.linalg.slogdet(A)
 
 
 def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:

@@ -29,13 +29,19 @@ SURFACES = {
         "ExpQuadCosine", "Sinc", "RatQuad", "Linear", "LinearFull", "TruncLinear",
         "TruncLinear_inf", "Bias", "White", "Fixed", "WhiteHeteroscedastic", "Precomputed",
         "Add", "Prod"}),
-    "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {"Gaussian", "HeteroscedasticGaussian"}),
-    "GPY_LINKS": ("gpy_tpu_torch.likelihoods.link_functions", {"Identity"}),
+    "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {
+        "Gaussian", "HeteroscedasticGaussian", "Bernoulli", "Binomial", "Poisson", "Exponential",
+        "Gamma", "StudentT", "Weibull", "LogLogistic", "LogGaussian"}),
+    "GPY_LINKS": ("gpy_tpu_torch.likelihoods.link_functions", {
+        "Identity", "Probit", "ScaledProbit", "Cloglog", "Log", "Log_ex_1", "Reciprocal",
+        "Heaviside"}),
     "GPY_MODELS": ("gpy_tpu_torch.models", {
-        "GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression", "SVGP"}),
+        "GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression", "SVGP",
+        "GPClassification", "SparseGPClassification", "OneVsAllClassification",
+        "OneVsAllSparseClassification"}),
     "GPY_INFERENCE": ("gpy_tpu_torch.inference", {
         "ExactGaussianInference", "VarDTC", "VarDTC_minibatch", "VarDTCMissingData", "FITC",
-        "DTC", "PEP", "SVGPInference"}),
+        "DTC", "PEP", "SVGPInference", "Laplace", "LaplaceBlock", "EP", "EPDTC"}),
     "GPY_PRIORS": ("gpy_tpu_torch.core.priors", {
         "Gaussian", "Uniform", "LogGaussian", "MultivariateGaussian", "Gamma",
         "InverseGamma", "Exponential", "StudentT", "HalfT"}),
