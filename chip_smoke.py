@@ -120,7 +120,30 @@ Phases, each printing one JSON line:
                 757-762): one NLML+gradient as above (2 B1 launches), then
                 SparseGPClassification on the same data and Z,
                 fit(iters=100) with the counters read around it (2 B1
-                launches a step), steps/s.
+                launches a step), steps/s;
+ 23. coreg    -- BASELINE config 4's multi-output half at bench.py:645-654's
+                shapes (4 outputs x 1000 points, D=1, float32): B1 against
+                its twin and timed at (4000, 4000, 1), (1000, 4000, 1) and
+                (1024, 1024, 1); GPCoregionalizedRegression (ICM(RBF(1)),
+                rank 1) one NLML+gradient with the counters read around it
+                (1 B1 launch), timed, profiled, its host syncs and a float64
+                twin; optimize(max_iters=20) in float32 and float64 from one
+                start (seconds, evaluations, NLML before and after, predict
+                RMSE against sin(x + i) at 1000 new points of each output,
+                predict ms); SparseGPCoregionalizedRegression (M=200, 2 B1
+                launches) and GPOffsetRegression (outputs 0 and 1 as two
+                clusters, 1 B1 launch) one NLML+gradient each; in float64,
+                the sparse bound with Z = X below the exact one by no more
+                than Kmm's jitter allows, and ICM with W = 0 as 4
+                independent GPRegressions;
+ 24. multioutput -- MultioutputGP at bench.py:821-830's 512 f + 512 f'
+                ([RBF(1), DiffKern(RBF, 0)], one base, Gaussian(1e-2)
+                twice): one NLML+gradient as above (1 B1 launch, the f-f
+                block), optimize(max_iters=20) in float32 and float64,
+                predict RMSE of f and f' at 256 points, the derivative
+                blocks in float64 against RBF's closed forms; then
+                [Gaussian(0.1), Bernoulli()] under EP, one NLML+gradient (2
+                B1 launches) with its sweeps.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -1601,6 +1624,15 @@ def host_syncs(fn) -> list:
             if "synchroniz" in str(w.message)]
 
 
+def with_host_syncs(rec, m):
+    """rec with the synchronizing CUDA operations of one NLML+gradient of m
+    at its parameters: their count and their sites."""
+    x = m.optimizer_array
+    syncs = host_syncs(lambda: m._objective_and_grad(x))
+    rec.update({"host_syncs_per_evaluation": len(syncs), "host_sync_sites": sorted(set(syncs))})
+    return rec
+
+
 def fit_host_syncs(m, iters):
     """Synchronizing CUDA operations in one fit(iters=...). A count that does
     not grow from 5 steps to 10 shows that the step loop reads nothing back
@@ -2268,9 +2300,7 @@ def run_classification(X, Y, Xte, Yte):
         rec, m64 = one_evaluation(m, lambda: cls_model(X, Y, torch.float64, method),
                                   f"classification {method}, N={CLS_N} float32")
         rec.update(loop_record(m, m64))
-        syncs = host_syncs(lambda: m._objective_and_grad(x))
-        rec.update({"host_syncs_per_evaluation": len(syncs),
-                    "host_sync_sites": sorted(set(syncs))})
+        with_host_syncs(rec, m)
         rec.update(iteration_ms(m, method))
 
         def f64_at(xx):
@@ -2399,6 +2429,373 @@ def run_cls(rg, smi):
                     + r["optimize_f64"]["rbf_gram_launches"] for r in cls["methods"].values())
                 + sp["rbf_gram_launches"] + s["launches"]["rbf_gram"])
     return {"launches": launches, "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
+
+
+# --- multi-output GPs (BASELINE config 4, second half) ----------------------
+
+# bench.py:645-654: GPCoregionalizedRegression over 4 outputs x 1000 points,
+# D=1, x ~ 10 U[0,1) sorted, y = sin(x + i) + 0.1 eps, the default
+# ICM(RBF(1)) of rank 1 (W drawn from numpy's global generator, seeded) and
+# 4 Gaussian noises; the sparse form with 200 inducing rows (the
+# reference's permutation); GPOffsetRegression on outputs 0 and 1 as two
+# clusters. bench.py:821-830: MultioutputGP over 512 f + 512 f' on [0, 4]
+COREG_P, COREG_N, COREG_M, COREG_SEED, COREG_OPT_ITERS = 4, 1000, 200, 0, 20
+COREG_ORACLE_ROWS = 100
+MO_N, MO_PRED = 512, 256
+# float32 against a float64 twin at the same raw parameters, the start's
+# (NLML relative, gradient as max|diff| / max|ref|): ~10x the first
+# readings on an H100 (GPCR 2.6e-7 / 2.7e-6; the sparse form 1.3e-4 / 3.9e-2,
+# its 200 x 200 Kmm of 1-D rows factoring in float32 only after jitchol's
+# ladder; offset 1.0e-6 / 1.2e-5; MultioutputGP 2.2e-6 / 2.8e-5; under EP
+# 1.05e-3 / 7.9e-4, its float32 sites running to max_iters=60 where
+# float64's stop after 16)
+COREG_REL_TOL = {
+    "gpcr": {"nlml": 2.6e-6, "grad": 2.7e-5},
+    "sparse_gpcr": {"nlml": 1.3e-3, "grad": 0.39},
+    "offset": {"nlml": 1e-5, "grad": 1.2e-4},
+    "multioutput": {"nlml": 2.2e-5, "grad": 2.8e-4},
+    "multioutput_ep": {"nlml": 1.1e-2, "grad": 7.9e-3},
+}
+# B1 launches an NLML+gradient: the f-f block is the only Gram kernel call
+# of an ICM or a MultioutputGP K; Kmm and Kmn; one Gram per kernel of the
+# [Gaussian, Bernoulli] model (independent outputs)
+COREG_B1 = {"gpcr": 1, "sparse_gpcr": 2, "offset": 1, "multioutput": 1, "multioutput_ep": 2}
+# float64 identities on the card: ICM with W = 0 is 4 independent GPs; the
+# derivative blocks are RBF's closed forms (max|diff| / max|ref|); with Z = X
+# on the first 100 rows of each output the sparse bound is the dense log
+# marginal but for Kmm's jitter (it read 6.7e-9 apart on an H100)
+COREG_EXACT_TOL = {"icm_w0_vs_independent": 1e-10, "cov_f_df": 1e-10, "cov_df_df": 1e-10,
+                   "sparse_z_eq_x_rel": 1e-8}
+# the reference's limits: the zoo's coregionalized fit (tests/test_models_
+# zoo.py:73) and the fit of f and f' (tests/test_multioutput_missing.py:58-61)
+COREG_F64_RMSE, MO_F64_RMSE = 0.5, {"f": 0.05, "df": 0.1}
+
+
+def coreg_data(seed=COREG_SEED):
+    """bench.py:648-651, float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    Xl = [np.sort(rng.random((COREG_N, 1)).astype(np.float32) * 10, 0) for _ in range(COREG_P)]
+    Yl = [np.sin(Xc + i) + 0.1 * rng.standard_normal(Xc.shape).astype(np.float32)
+          for i, Xc in enumerate(Xl)]
+    return Xl, Yl
+
+
+def coreg_model(Xl, Yl, dtype, sparse=False, **kw):
+    """GPCoregionalizedRegression (or the sparse form) with numpy's global
+    generator seeded first, so every twin draws the same default W."""
+    import numpy as np
+    from gpy_tpu_torch.models import GPCoregionalizedRegression, SparseGPCoregionalizedRegression
+
+    np.random.seed(COREG_SEED)
+    if sparse:
+        return SparseGPCoregionalizedRegression(Xl, Yl, num_inducing=COREG_M, device="cuda",
+                                                dtype=dtype, **kw)
+    return GPCoregionalizedRegression(Xl, Yl, device="cuda", dtype=dtype, **kw)
+
+
+def offset_model(Xl, Yl, dtype):
+    """GPOffsetRegression on outputs 0 and 1 as clusters 0 and 1."""
+    import numpy as np
+    from gpy_tpu_torch.models import GPOffsetRegression
+
+    X = np.vstack([np.hstack([Xl[c], np.full_like(Xl[c], c)]) for c in (0, 1)])
+    return GPOffsetRegression(X, np.vstack(Yl[:2]), device="cuda", dtype=dtype)
+
+
+def fit_run(m, f64_at, predict_rmse):
+    """optimize(max_iters=COREG_OPT_ITERS) from the model's start: seconds, evaluations,
+    B1 launches (counters set to 0 just before and read just after), the
+    NLML before and after (the model's own and float64's by f64_at) and
+    predict_rmse(m) -> ({name: RMSE}, predict ms) before and after."""
+    import numpy as np
+
+    x0 = m.optimizer_array
+    f0, _ = m._objective_and_grad(x0)
+    rmse0, _ = predict_rmse(m)
+    res, evals, wall, launches = timed_optimize(m, COREG_OPT_ITERS)
+    x1 = m.optimizer_array
+    f64_start, f64_end = f64_at(x0), f64_at(x1)
+    f1, g1 = m._objective_and_grad(x1)  # f64_at may be the model's own
+    rmse1, predict_ms = predict_rmse(m)
+    check(all(v == 0 for k, v in launches.items() if k != "rbf_gram"),
+          f"multi-output optimize: unexpected launches {launches}")
+    return {"dtype": str(m.dtype).replace("torch.", ""), "seconds": wall, "evaluations": evals,
+            "iterations": res.n_iters, "ms_per_evaluation": wall / evals * 1e3,
+            "scipy_message": res.status, "rbf_gram_launches": launches["rbf_gram"],
+            "nlml_start": f0, "nlml_end": f1, "nlml_start_f64": f64_start,
+            "nlml_end_f64": f64_end, "pred_rmse_start": rmse0, "pred_rmse_end": rmse1,
+            "predict_ms_posterior_cached": predict_ms,
+            "finite": bool(math.isfinite(f1) and np.isfinite(g1).all()
+                           and all(math.isfinite(v) for v in rmse1.values()))}
+
+
+def coreg_rmse(Xte):
+    """predict_rmse for a coregionalized model: 1000 new points of each
+    output, one predict call per output with its Y_metadata, RMSE against
+    sin(x + i); predict ms of one call (posterior cached)."""
+    import numpy as np
+
+    def run(m):
+        out = {}
+        for i, xs in enumerate(Xte):
+            Xs = np.hstack([xs, np.full_like(xs, i)])
+            md = {"output_index": np.full((len(xs), 1), i)}
+            mu, var = m.predict(Xs, Y_metadata=md)
+            ok = np.isfinite(mu).all() and np.isfinite(var).all() and (var > 0).all()
+            out[f"output{i}"] = float(np.sqrt(np.mean((mu - np.sin(xs + i)) ** 2))) if ok \
+                else math.nan
+        Xs0 = np.hstack([Xte[0], np.zeros_like(Xte[0])])
+        md0 = {"output_index": np.zeros((len(Xte[0]), 1), dtype=int)}
+        return out, host_ms(lambda: m.predict(Xs0, Y_metadata=md0), reps=10, warmup=2)
+    return run
+
+
+def run_coreg(Xl, Yl):
+    """GPCoregionalizedRegression at bench.py's N=4 x 1000: one float32
+    NLML+gradient (one_evaluation) with its host syncs, optimize in float32
+    and in its float64 twin from one start, predict; the sparse form and
+    GPOffsetRegression one NLML+gradient each; the float64 oracles."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.likelihoods import Gaussian
+    from gpy_tpu_torch.models import GPRegression
+    from gpy_tpu_torch.util.multioutput import ICM
+
+    f64 = torch.float64
+    rng = np.random.default_rng(COREG_SEED + 1)
+    Xte = [np.sort(rng.random((COREG_N, 1)).astype(np.float32) * 10, 0) for _ in range(COREG_P)]
+    recs = {}
+    m = coreg_model(Xl, Yl, torch.float32)
+    rec, m64 = one_evaluation(m, lambda: coreg_model(Xl, Yl, f64),
+                              f"coreg gpcr, N={COREG_P}x{COREG_N} float32")
+    recs["gpcr"] = with_host_syncs(rec, m)
+    x = m.optimizer_array
+
+    def f64_at(xx):
+        return m64._objective_and_grad(xx)[0]
+
+    rec["optimize"] = fit_run(m, f64_at, coreg_rmse(Xte))
+    m64.set_flat_raw(x)
+    rec["optimize_f64"] = fit_run(m64, f64_at, coreg_rmse(Xte))
+    del m, m64
+    torch.cuda.empty_cache()
+
+    m = coreg_model(Xl, Yl, torch.float32, sparse=True)
+    rec, _ = one_evaluation(m, lambda: coreg_model(Xl, Yl, f64, sparse=True),
+                            f"coreg sparse_gpcr, N={COREG_P}x{COREG_N}, M={COREG_M} float32")
+    recs["sparse_gpcr"] = with_host_syncs(rec, m)
+    m = offset_model(Xl, Yl, torch.float32)
+    rec, _ = one_evaluation(m, lambda: offset_model(Xl, Yl, f64),
+                            f"coreg offset, N=2x{COREG_N} float32")
+    recs["offset"] = with_host_syncs(rec, m)
+    del m
+    torch.cuda.empty_cache()
+
+    # float64 oracles: with Z = X (the first rows of each output) the
+    # collapsed bound lies below the exact log marginal by Kmm's jitter only
+    Xs_, Ys_ = [X[:COREG_ORACLE_ROWS] for X in Xl], [Y[:COREG_ORACLE_ROWS] for Y in Yl]
+    dense = coreg_model(Xs_, Ys_, f64)
+    sparse = coreg_model(Xs_, Ys_, f64, sparse=True, Z_list=Xs_)
+    with torch.no_grad():
+        ll_dense, ll_sparse = dense.log_likelihood().item(), sparse.log_likelihood().item()
+    noise = [float(lik.variance) for lik in dense.likelihood.likelihoods_list]
+    exact = {"sparse_z_eq_x_gap": ll_dense - ll_sparse,
+             "sparse_z_eq_x_gap_bound": jitter_gap_bound(np.vstack(Ys_), noise),
+             "sparse_z_eq_x_rel": rel(ll_sparse, ll_dense)}
+    # W = 0: B = diag(kappa), so the outputs are independent GPs with RBF
+    # variance v * kappa_i and their own noise
+    kappa, noises, v, ls = [0.5, 0.8, 1.1, 1.4], [0.01, 0.02, 0.04, 0.08], 1.3, 0.8
+    kern = ICM(1, COREG_P, RBF(1, variance=v, lengthscale=ls, device="cuda", dtype=f64),
+               W=np.zeros((COREG_P, 1)), kappa=kappa)
+    liks = [Gaussian(variance=s, device="cuda", dtype=f64) for s in noises]
+    icm = coreg_model(Xl, Yl, f64, kernel=kern, likelihoods_list=liks)
+    with torch.no_grad():
+        ll_icm = icm.log_likelihood().item()
+        ll_sum = sum(GPRegression(X, Y, RBF(1, variance=v * k, lengthscale=ls, device="cuda",
+                                            dtype=f64), noise_var=s, device="cuda",
+                                  dtype=f64).log_likelihood().item()
+                     for X, Y, k, s in zip(Xl, Yl, kappa, noises))
+    exact["icm_w0_vs_independent"] = rel(ll_icm, ll_sum)
+    del dense, sparse, icm
+    torch.cuda.empty_cache()
+    return {"phase": "coreg", "outputs": COREG_P, "N_per_output": COREG_N, "M": COREG_M,
+            "dtype": "float32", "kernel": "ICM(RBF(1)), W_rank=1, default start",
+            "models": recs, "f32_limits": {k: COREG_REL_TOL[k] for k in recs},
+            "rbf_gram_launches_expected": {k: COREG_B1[k] for k in recs},
+            "float64_identities": exact}
+
+
+def mo_model(dtype, likelihoods=("gaussian", "gaussian")):
+    """bench.py:821-830: MultioutputGP over 512 points of f = sin and 512 of
+    f' = cos on [0, 4], [RBF(1), DiffKern(RBF, 0)] sharing one base,
+    Gaussian(1e-2) twice; or [Gaussian(0.1), Bernoulli()] over f and the
+    classes of sin(2x) + 0.3 eps, one RBF(1) each (EP)."""
+    import numpy as np
+    from gpy_tpu_torch.kern import RBF, DiffKern
+    from gpy_tpu_torch.likelihoods import Bernoulli, Gaussian
+    from gpy_tpu_torch.models import MultioutputGP
+
+    kw = {"device": "cuda", "dtype": dtype}
+    X = np.linspace(0, 4, MO_N).reshape(-1, 1).astype(np.float32)
+    if likelihoods == ("gaussian", "gaussian"):
+        base = RBF(1, **kw)
+        return MultioutputGP([X, X], [np.sin(X), np.cos(X)], [base, DiffKern(base, 0, **kw)],
+                             [Gaussian(variance=1e-2, **kw), Gaussian(variance=1e-2, **kw)], **kw)
+    rng = np.random.default_rng(3)
+    Y0 = np.sin(X) + 0.1 * rng.standard_normal(X.shape).astype(np.float32)
+    Y1 = (np.sin(2 * X) + 0.3 * rng.standard_normal(X.shape) > 0).astype(np.float32)
+    return MultioutputGP([X, X], [Y0, Y1], [RBF(1, **kw), RBF(1, **kw)],
+                         [Gaussian(variance=0.1, **kw), Bernoulli(**kw)], **kw)
+
+
+def mo_rmse(m):
+    """predict_rmse for the derivative model: f and f' at 256 new points,
+    RMSE against sin and cos; predict ms of one call (posterior cached)."""
+    import numpy as np
+    from gpy_tpu_torch.util.multioutput import build_XY
+
+    xs = np.linspace(0.05, 3.95, MO_PRED).reshape(-1, 1)
+    out = {}
+    for name, j, truth in (("f", 0, np.sin(xs)), ("df", 1, np.cos(xs))):
+        mu, var = m.predict(build_XY([xs], index=[j])[0])
+        ok = np.isfinite(mu).all() and np.isfinite(var).all() and (var > 0).all()
+        out[name] = float(np.sqrt(np.mean((mu - truth) ** 2))) if ok else math.nan
+    Xs = build_XY([xs], index=[0])[0]
+    return out, host_ms(lambda: m.predict(Xs), reps=10, warmup=2)
+
+
+def run_multioutput():
+    """MultioutputGP at bench.py's 512 f + 512 f': one float32 NLML+gradient
+    (one_evaluation) with its host syncs, optimize in float32 and its
+    float64 twin from one start, predict of f and f'; the derivative blocks
+    in float64 against RBF's closed forms; the [Gaussian, Bernoulli] model
+    under EP, one NLML+gradient with its sweeps."""
+    import torch
+
+    f64 = torch.float64
+    m = mo_model(torch.float32)
+    rec, m64 = one_evaluation(m, lambda: mo_model(f64),
+                              f"multioutput, {MO_N} f + {MO_N} f' float32")
+    recs = {"multioutput": with_host_syncs(rec, m)}
+    x = m.optimizer_array
+
+    def f64_at(xx):
+        return m64._objective_and_grad(xx)[0]
+
+    rec["optimize"] = fit_run(m, f64_at, mo_rmse)
+    m64.set_flat_raw(x)
+    rec["optimize_f64"] = fit_run(m64, f64_at, mo_rmse)
+
+    # the derivative blocks at the float64 fit's parameters against RBF's
+    # closed forms: cov(f(x), f'(x')) = dk/dx' = (v / l^2) d exp(-d^2 / 2l^2)
+    # and cov(f', f'') = (v / l^2)(1 - d^2 / l^2) exp(-d^2 / 2l^2), d = x - x'
+    with torch.no_grad():
+        K = m64.kern.K(m64.X)
+        base = m64.kern.parts[0]
+        v, ls = float(base.variance), float(base.lengthscale)
+        x = m64.X[:MO_N, 0]
+        d = x[:, None] - x[None, :]
+        e = v * torch.exp(-0.5 * d**2 / ls**2)
+        closed = {"cov_f_df": (K[:MO_N, MO_N:], e * d / ls**2),
+                  "cov_df_df": (K[MO_N:, MO_N:], e / ls**2 * (1 - d**2 / ls**2))}
+    exact = {k: float((a - b).abs().max() / b.abs().max()) for k, (a, b) in closed.items()}
+    del m, m64, K
+    torch.cuda.empty_cache()
+
+    m = mo_model(torch.float32, ("gaussian", "bernoulli"))
+    rec, m64 = one_evaluation(m, lambda: mo_model(f64, ("gaussian", "bernoulli")),
+                              f"multioutput EP, {MO_N} + {MO_N} float32")
+    rec.update(loop_record(m, m64))
+    recs["multioutput_ep"] = with_host_syncs(rec, m)
+    del m, m64
+    torch.cuda.empty_cache()
+    return {"phase": "multioutput", "N": 2 * MO_N, "dtype": "float32",
+            "kernel": "[RBF(1), DiffKern(RBF, 0)], one base; EP: [RBF(1), RBF(1)]",
+            "models": recs, "f32_limits": {k: COREG_REL_TOL[k] for k in recs},
+            "rbf_gram_launches_expected": {k: COREG_B1[k] for k in recs},
+            "float64_identities": exact}
+
+
+def jitter_gap_bound(Y, noise):
+    """How far the collapsed bound with Z = X may lie below the exact log
+    marginal: VarDTC factors Kmm + 1e-6 I, so K - Q is below 1e-6 I, which
+    moves the trace term by at most 1e-6 N / (2 s2_min) and the Gaussian
+    term by at most 1e-6 (N / s2_min + |y|^2 / s2_min^2) / 2."""
+    import numpy as np
+    from gpy_tpu_torch.inference.var_dtc import CONST_JITTER
+
+    s2 = float(np.min(noise))
+    return CONST_JITTER * (Y.shape[0] / s2 + float(np.sum(Y**2)) / (2 * s2**2))
+
+
+def run_multi(rg, smi):
+    """BASELINE config 4's multi-output half on the card: B1 checked and
+    timed at the multi-output shapes, then the coreg and multioutput
+    phases. Every record is printed before the limits are applied. Returns
+    B1's launches on each phase's path, its checks and its times."""
+    import torch
+
+    shapes = ((COREG_P * COREG_N, COREG_P * COREG_N, 1), (COREG_N, COREG_P * COREG_N, 1),
+              (2 * MO_N, 2 * MO_N, 1))
+    t0 = time.perf_counter()
+    b1_checks = [check_rbf_gram(rg, *s, dt) for s in shapes
+                 for dt in (torch.float32, torch.float64)]
+    b1_times = [time_rbf_gram(rg, *s) for s in shapes]
+    b1_seconds = time.perf_counter() - t0
+    Xl, Yl = coreg_data()
+    t0 = time.perf_counter()
+    co = run_coreg(Xl, Yl)
+    co.update({"seconds": time.perf_counter() - t0, "rbf_gram_seconds": b1_seconds,
+               "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times, "nvidia_smi": smi})
+    emit(co)
+    t0 = time.perf_counter()
+    mo = run_multioutput()
+    mo.update({"seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    emit(mo)
+
+    models = dict(co["models"], **mo["models"])
+    for name, tols in COREG_REL_TOL.items():
+        for k, tol in tols.items():
+            v = models[name][f"{k}_rel_f32_vs_f64"]
+            check(v <= tol, f"{name}: float32 vs float64 {k}: rel {v} > {tol}")
+    for name, want in COREG_B1.items():
+        got = models[name]["rbf_gram_launches"]
+        check(got == want, f"{name}: {got} rbf_gram launches an evaluation, not {want}")
+    for name in ("gpcr", "multioutput"):
+        for run in ("optimize", "optimize_f64"):
+            o = models[name][run]
+            what = f"{name} {run}"
+            check(o["finite"], f"{what}: non-finite NLML, gradient or prediction")
+            check(o["nlml_end_f64"] < o["nlml_start_f64"],
+                  f"{what}: the NLML did not fall as float64 evaluates it "
+                  f"({o['nlml_start_f64']} -> {o['nlml_end_f64']})")
+            check(o["rbf_gram_launches"] == o["evaluations"],
+                  f"{what}: {o['rbf_gram_launches']} rbf_gram launches in "
+                  f"{o['evaluations']} evaluations")
+    rmse = models["gpcr"]["optimize_f64"]["pred_rmse_end"]
+    check(max(rmse.values()) < COREG_F64_RMSE,
+          f"gpcr: the float64 fit's predict RMSE {rmse} not below {COREG_F64_RMSE}")
+    rmse = models["multioutput"]["optimize_f64"]["pred_rmse_end"]
+    check(all(rmse[k] < lim for k, lim in MO_F64_RMSE.items()),
+          f"multioutput: the float64 fit's predict RMSE {rmse} not below {MO_F64_RMSE}")
+    identities = dict(co["float64_identities"], **mo["float64_identities"])
+    for k, tol in COREG_EXACT_TOL.items():
+        check(identities[k] <= tol, f"multi-output float64 identity {k}: {identities[k]} > {tol}")
+    gap = identities["sparse_z_eq_x_gap"]
+    check(0.0 <= gap <= identities["sparse_z_eq_x_gap_bound"],
+          f"sparse_gpcr with Z = X: the bound is {gap} below the exact log marginal, outside "
+          f"[0, {identities['sparse_z_eq_x_gap_bound']}]")
+    launches_co = (sum(r["rbf_gram_launches"] for r in co["models"].values())
+                   + sum(co["models"]["gpcr"][r]["rbf_gram_launches"]
+                         for r in ("optimize", "optimize_f64")))
+    launches_mo = (sum(r["rbf_gram_launches"] for r in mo["models"].values())
+                   + sum(mo["models"]["multioutput"][r]["rbf_gram_launches"]
+                         for r in ("optimize", "optimize_f64")))
+    return {"launches_coreg": launches_co, "launches_multioutput": launches_mo,
+            "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
 
 
 def run_svgp(rg, smi):
@@ -2589,6 +2986,8 @@ def main() -> int:
     sparse_rec = run_sparse(rg, smi)
     # non-Gaussian inference at BASELINE config 3's shapes
     cls_rec = run_cls(rg, smi)
+    # multi-output GPs, BASELINE config 4's second half
+    multi_rec = run_multi(rg, smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -2601,17 +3000,21 @@ def main() -> int:
         "launches": slice_rec["launches"] + sum(iter_rec[t]["launches"]["rbf_gram"]
                                                 for t in ("fused", "auto"))
         + hmc_rec["launches"]["rbf_gram"] + svgp_rec["launches"]["rbf_gram"]
-        + sparse_rec["launches"] + cls_rec["launches"],
+        + sparse_rec["launches"] + cls_rec["launches"] + multi_rec["launches_coreg"]
+        + multi_rec["launches_multioutput"],
         "launches_svgp": svgp_rec["launches"]["rbf_gram"],
         "launches_sparse": sparse_rec["launches"],
         "launches_classification": cls_rec["launches"],
+        "launches_coreg": multi_rec["launches_coreg"],
+        "launches_multioutput": multi_rec["launches_multioutput"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
                            + sparse_rec["rbf_gram_checks"] + cls_rec["rbf_gram_checks"]
-                           if c["dtype"] == "float32"),
+                           + multi_rec["rbf_gram_checks"] if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
         "svgp_shapes": svgp_rec["rbf_gram_times"], "sparse_shapes": sparse_rec["rbf_gram_times"],
         "classification_shapes": cls_rec["rbf_gram_times"],
+        "multi_output_shapes": multi_rec["rbf_gram_times"],
     }, {
         "name": "gram_matvec_fused", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",

@@ -19,7 +19,9 @@ nn.Parameter in place: it never replaces the parameter with a plain value.
 
 The flat raw vector keeps gpy_tpu's order index for index: own parameters in
 registration order, then children in registration order, with list children
-keyed ``key#i``; fixed parameters and tie followers are left out.
+keyed ``key#i``; fixed parameters and tie followers are left out. A module
+reached by two paths (a kernel shared by two parts) has its parameters at
+both paths of the raw dict and once in the flat vector, at the first.
 
 Tied parameters share one nn.Parameter object, so a write to any member is a
 write to all, and autograd sums every member's contribution into the one
@@ -401,13 +403,19 @@ class Module(nn.Module):
 
     # --- flat vector interface (optimizer space) --------------------------
     def _free_entries(self):
-        return [
-            (path, mod, n)
-            for path, mod, n in self.named_params()
-            if not mod._specs[n].fixed
-            and not (mod._specs[n].tie is not None
-                     and path in mod._specs[n].tie.follower_paths)
-        ]
+        """(path, module, name) of each free parameter, each once: a module
+        reached by two paths (one kernel shared by two parts of a
+        MultioutputKern, through DiffKern's base_kern) stands at its first."""
+        seen = set()
+        out = []
+        for path, mod, n in self.named_params():
+            spec = mod._specs[n]
+            if spec.fixed or (spec.tie is not None and path in spec.tie.follower_paths):
+                continue
+            if (id(mod), n) not in seen:
+                seen.add((id(mod), n))
+                out.append((path, mod, n))
+        return out
 
     def _free_parameters(self):
         return [mod._parameters[n] for _, mod, n in self._free_entries()]

@@ -38,6 +38,10 @@ class Kern(Module):
             self.active_dims, np.arange(self.input_dim)
         ):
             return X
+        a = int(self.active_dims[0])
+        if a >= 0 and np.array_equal(self.active_dims, np.arange(a, a + self.input_dim)):
+            # a view: no index tensor to copy to the card (a host sync)
+            return X[..., a:a + self.input_dim]
         idx = torch.as_tensor(self.active_dims, dtype=torch.long, device=X.device)
         return X[..., idx]
 
@@ -47,6 +51,13 @@ class Kern(Module):
 
     def Kdiag(self, X):
         raise NotImplementedError
+
+    def _k_pair(self, x, x2):
+        """k(x, x2) of two single points, shape (input columns,), in torch
+        ops that torch.func can trace: DiffKern differentiates it twice. By
+        default the 1 x 1 Gram; kernels whose K launches a CUDA kernel, or
+        combines kernels that may, override it."""
+        return self.K(x[None, :], x2[None, :])[0, 0]
 
     # --- autograd conveniences (GPy's hand-written versions) --------------
     def gradients_X(self, dL_dK, X, X2=None):
@@ -100,6 +111,9 @@ class Add(CombinationKernel):
     def Kdiag(self, X):
         return sum(p.Kdiag(X) for p in self.parts)
 
+    def _k_pair(self, x, x2):
+        return sum(p._k_pair(x, x2) for p in self.parts)
+
 
 class Prod(CombinationKernel):
     """Product kernel. GPy: kern/src/prod.py."""
@@ -120,4 +134,10 @@ class Prod(CombinationKernel):
         out = self.parts[0].Kdiag(X)
         for p in self.parts[1:]:
             out = out * p.Kdiag(X)
+        return out
+
+    def _k_pair(self, x, x2):
+        out = self.parts[0]._k_pair(x, x2)
+        for p in self.parts[1:]:
+            out = out * p._k_pair(x, x2)
         return out

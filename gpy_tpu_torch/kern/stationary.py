@@ -3,9 +3,11 @@
 Counterpart of gpy_tpu/kern/stationary.py:42-336 (GPy/kern/src/
 stationary.py and rbf.py). RBF.K goes through ops.rbf_gram on every tensor:
 on the card that is the CUDA kernel, at every shape. The other families
-evaluate K_of_r(safe_sqrt(r2)) in torch ops (RatQuad its K on r2); Matern32,
-Matern52 and Exponential are also the families the fused Gram-matvec
-(ops/gram_matvec_fused.py) dispatches on. The sde() forms wait for the
+evaluate K_of_r(safe_sqrt(r2)) in torch ops (RatQuad its K on r2).
+`_k_pair`, the same function of one pair of points, is what DiffKern
+differentiates by torch.func. Matern32, Matern52 and Exponential are also
+the families the fused Gram-matvec (ops/gram_matvec_fused.py) dispatches
+on. The sde() forms wait for the
 state-space slice (ROADMAP A14), the RBF psi statistics for A12.
 """
 from __future__ import annotations
@@ -55,16 +57,24 @@ class Stationary(Kern):
         Xs = X / ls
         return scaled_dist2(Xs, Xs if X2 is None else X2 / ls)
 
-    def _scaled_dist(self, X, X2=None):
-        return safe_sqrt(self._scaled_dist2(X, X2))
-
     # --- API --------------------------------------------------------------
     def K_of_r(self, r):
         raise NotImplementedError
 
+    def _K_of_r2(self, r2):
+        """K on the squared scaled distance; r through safe_sqrt, whose
+        gradient at r2 = 0 is 0 (the reference's K at coincident points)."""
+        return self.K_of_r(safe_sqrt(r2))
+
     def K(self, X, X2=None):
         X, X2 = self._slice(X), self._slice(X2)
-        return self.K_of_r(self._scaled_dist(X, X2))
+        return self._K_of_r2(self._scaled_dist2(X, X2))
+
+    def _k_pair(self, x, x2):
+        # the per-pair form of K for torch.func (DiffKern): direct
+        # differences, no Gram kernel
+        x, x2 = self._slice(x), self._slice(x2)
+        return self._K_of_r2(torch.sum(((x - x2) / self.lengthscale.values) ** 2))
 
     def Kdiag(self, X):
         v = self.variance.values
@@ -89,6 +99,10 @@ class RBF(Stationary):
         # diagonal is exactly v (GPy fills it explicitly)
         X, X2 = self._slice(X), self._slice(X2)
         return rbf_gram(X, X2, self.variance.values, self.lengthscale.values)
+
+    def _K_of_r2(self, r2):
+        # no square root, as K: the derivative covariances at r = 0 are v/l^2
+        return self.variance.values * torch.exp(-0.5 * r2)
 
 
 class ExpQuad(RBF):
@@ -186,13 +200,9 @@ class RatQuad(Stationary):
                          device=device, dtype=dtype)
         self._add_param("power", power, transform=Logexp())
 
-    def K(self, X, X2=None):
-        # on r2: no square root to differentiate at r = 0
-        X, X2 = self._slice(X), self._slice(X2)
-        return self._K_of_r2(self._scaled_dist2(X, X2))
-
     def K_of_r(self, r):
         return self._K_of_r2(r**2)
 
     def _K_of_r2(self, r2):
+        # on r2: no square root to differentiate at r = 0
         return self.variance.values * torch.exp(-self.power.values * torch.log1p(r2 / 2.0))

@@ -5,7 +5,8 @@ from .families import (Binomial, Exponential, Gamma, LogGaussian, LogLogistic, P
                        Weibull)
 from .gaussian import Gaussian, HeteroscedasticGaussian
 from .likelihood import Likelihood
+from .mixed_noise import MixedNoise, MultioutputLikelihood
 
 __all__ = ["link_functions", "Likelihood", "Gaussian", "HeteroscedasticGaussian", "Bernoulli",
            "Poisson", "Binomial", "Exponential", "Gamma", "StudentT", "Weibull", "LogLogistic",
-           "LogGaussian"]
+           "LogGaussian", "MixedNoise", "MultioutputLikelihood"]

@@ -13,6 +13,7 @@ jax.random's: sample parity with the reference is by moments.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -29,7 +30,14 @@ _GH_DEGREE = 20
 
 def gh_points(degree: int = _GH_DEGREE, dtype=torch.float64, device=None):
     """Hermite-Gauss nodes and weights for N(0, 1) expectations, from
-    numpy's hermgauss in float64 exactly as the reference takes them."""
+    numpy's hermgauss in float64 exactly as the reference takes them. Made
+    once per degree, dtype and device (a copy to the card is a host sync,
+    and EP's quadrature asks every sweep); callers must not write to them."""
+    return _gh_points(int(degree), dtype, torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _gh_points(degree, dtype, device):
     x, w = np.polynomial.hermite.hermgauss(degree)
     x = x * np.sqrt(2.0)
     w = w / np.sqrt(np.pi)

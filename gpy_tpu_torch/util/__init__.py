@@ -1,3 +1,3 @@
-from . import choleskies, convert, linalg
+from . import choleskies, convert, linalg, multioutput
 
-__all__ = ["linalg", "convert", "choleskies"]
+__all__ = ["linalg", "convert", "choleskies", "multioutput"]

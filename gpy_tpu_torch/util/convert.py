@@ -6,7 +6,11 @@ caller converts gpy_tpu's `get_raw_dict()` to numpy; nothing here imports
 the JAX package. Fixed parameters are in the dict too (StudentT's
 `deg_free`, Gamma's `beta`) and cross like the others, as raw values under
 the same transforms (Logexp for every likelihood parameter); the fixed
-flags are set by the constructors, equal in both packages.
+flags are set by the constructors, equal in both packages. List children
+cross as `key#i` (`kern.parts#1.W`, `likelihood.likelihoods_list#0.variance`).
+A kernel shared by two parts (MultioutputGP's [k, DiffKern(k, 0)]) stands
+at both of its paths; the later path's value is the one kept, as in the
+reference's set_raw_dict.
 """
 from __future__ import annotations
 

@@ -28,17 +28,20 @@ SURFACES = {
         "RBF", "ExpQuad", "Exponential", "OU", "Matern32", "Matern52", "Cosine",
         "ExpQuadCosine", "Sinc", "RatQuad", "Linear", "LinearFull", "TruncLinear",
         "TruncLinear_inf", "Bias", "White", "Fixed", "WhiteHeteroscedastic", "Precomputed",
-        "Add", "Prod"}),
+        "Add", "Prod", "Coregionalize", "IndependentOutputs", "Hierarchical", "MultioutputKern",
+        "MultioutputDerivativeKern", "DiffKern"}),
     "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {
         "Gaussian", "HeteroscedasticGaussian", "Bernoulli", "Binomial", "Poisson", "Exponential",
-        "Gamma", "StudentT", "Weibull", "LogLogistic", "LogGaussian"}),
+        "Gamma", "StudentT", "Weibull", "LogLogistic", "LogGaussian", "MixedNoise",
+        "MultioutputLikelihood"}),
     "GPY_LINKS": ("gpy_tpu_torch.likelihoods.link_functions", {
         "Identity", "Probit", "ScaledProbit", "Cloglog", "Log", "Log_ex_1", "Reciprocal",
         "Heaviside"}),
     "GPY_MODELS": ("gpy_tpu_torch.models", {
         "GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression", "SVGP",
         "GPClassification", "SparseGPClassification", "OneVsAllClassification",
-        "OneVsAllSparseClassification"}),
+        "OneVsAllSparseClassification", "GPCoregionalizedRegression",
+        "SparseGPCoregionalizedRegression", "GPOffsetRegression", "MultioutputGP"}),
     "GPY_INFERENCE": ("gpy_tpu_torch.inference", {
         "ExactGaussianInference", "VarDTC", "VarDTC_minibatch", "VarDTCMissingData", "FITC",
         "DTC", "PEP", "SVGPInference", "Laplace", "LaplaceBlock", "EP", "EPDTC"}),
