@@ -143,7 +143,38 @@ Phases, each printing one JSON line:
                 predict RMSE of f and f' at 256 points, the derivative
                 blocks in float64 against RBF's closed forms; then
                 [Gaussian(0.1), Bernoulli()] under EP, one NLML+gradient (2
-                B1 launches) with its sweeps.
+                B1 launches) with its sweeps;
+ 25. gplvm    -- BASELINE config 5's first half at bench.py:627-642's shape
+                (Y = N(0,1)^{1000x3} N(0,1)^{3x12} + 0.1 eps, float32): B1
+                against its twin and timed at (30, 30, 10), (1000, 1000,
+                10), (30, 1000, 10), (64, 64, 2) and (64, 1000, 2);
+                BayesianGPLVM(Y, 10, num_inducing=30), GPLVM, SparseGPLVM,
+                MRD over columns 0-5 and 6-11, SSGPLVM and
+                BayesianGPLVMMiniBatch with 10% of Y missing, one
+                NLML+gradient each with the counters read around it (1 B1
+                launch, Kmm; 2 for SparseGPLVM and MRD), timed, profiled
+                and against a float64 twin (BayesianGPLVM's host syncs
+                too); optimize(optimizer="adam", max_iters=200,
+                step_size=5e-3) after one warm-up call, three times (steps/s
+                best and median; 200 B1 launches); BayesianGPLVM at
+                N=50,000, M=128: NLML+gradient ms and peak device memory
+                against the 3.3 GB of a materialized psi2; in float64,
+                S -> 0 against SparseGPRegression's VarDTC bound at X = the
+                mean, SSGPLVM at gamma -> 1 against BayesianGPLVM, and the
+                streamed psi2 against the summed psi2n;
+ 26. sparse_hmc -- the batched sparse bound: bench.py:847-853's HMC data as
+                SparseGPRegression(num_inducing=64), HMC (stepsize 0.02,
+                10 leapfrog steps, 40 samples) in float64 at 1, 2, 4, 8
+                and 16 chains (samples x chains per second, acceptance
+                above 0.5, 2 B1 launches a chain an evaluation) and in
+                float32 at 16 (it accepts nothing at this Kmm, as the
+                reference's float32 chains do); the batched logp and
+                gradient against the unbatched path at the float32
+                chains' final states (float64, and float32 against its
+                unbatched path's own error) and at the float64 chains'
+                (float64), with cond(Kmm) at each;
+                optimize_restarts(parallel=True) with 16 restarts in
+                float32 and in float64 (checked) beside L-BFGS-B.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -2798,6 +2829,397 @@ def run_multi(rg, smi):
             "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
 
 
+# --- latent-variable models and sparse HMC (BASELINE config 5) ---------------
+
+# bench.py:627-642: BayesianGPLVM(Y, 10, num_inducing=30) on Y = N(0,1)^{1000x3}
+# N(0,1)^{3x12} + 0.1 eps, Adam at 5e-3, 200 steps a call; the streaming check
+# at a shape picked for it (an (N, M, M) float32 psi2 would be 3.3 GB)
+LV_N, LV_D, LV_Q, LV_M, LV_ADAM_ITERS, LV_STEP = 1000, 12, 10, 30, 200, 5e-3
+LV_STREAM_N, LV_STREAM_M = 50_000, 128
+# B1 launches an evaluation: Kmm only for the psi-statistics bounds (one a
+# view for MRD), K(X) for GPLVM, Kmm and Kmn for SparseGPLVM
+LV_B1 = {"bgplvm": 1, "gplvm": 1, "sparse_gplvm": 2, "mrd": 2, "ssgplvm": 1,
+         "bgplvm_minibatch_nan": 1}
+# float32 against a float64 twin at the start's raw parameters (NLML
+# relative, gradient as max|diff| / max|ref|): ~10x the readings on an H100,
+# equal in two calls (BayesianGPLVM 1.0e-8 / 5.5e-8, GPLVM 4.1e-8 /
+# 1.7e-6, SparseGPLVM 2.7e-8 / 6.1e-8, MRD 7.7e-8 / 5.7e-8, SSGPLVM 6.4e-8
+# / 7.5e-8, the missing-data model 2.7e-8 / 1.9e-8)
+LV_REL_TOL = {
+    "bgplvm": {"nlml": 1e-7, "grad": 5.5e-7},
+    "gplvm": {"nlml": 4.1e-7, "grad": 1.7e-5},
+    "sparse_gplvm": {"nlml": 2.7e-7, "grad": 6.1e-7},
+    "mrd": {"nlml": 7.7e-7, "grad": 5.7e-7},
+    "ssgplvm": {"nlml": 6.4e-7, "grad": 7.5e-7},
+    "bgplvm_minibatch_nan": {"nlml": 2.7e-7, "grad": 1.9e-7},
+}
+# float64 identities on the card: BayesianGPLVM at S = 1e-10 against
+# SparseGPRegression's VarDTC bound at X = the mean (before the KL); SSGPLVM
+# at gamma = 1 - 1e-10 against BayesianGPLVM (before the KL); the streamed
+# psi2 against the summed psi2n at N = 1000. ~10x the readings on an H100
+# (1.06e-11, 2.0e-12, 1.7e-16)
+LV_EXACT_TOL = {"bgplvm_s0_vs_vardtc": 1.1e-10, "ssgplvm_gamma1_vs_bgplvm": 2e-11,
+                "streamed_psi2_vs_psi2n": 1.7e-15}
+# the sparse HMC stage: bench.py:847-853's data as SparseGPRegression(M=64),
+# its chains in float64: Kmm of 64 rows in 2-D at lengthscale 1 is too
+# ill-conditioned for float32, whose leapfrog trajectories diverge and
+# accept nothing, in the port as in the reference (hmc_f32_witness.py on
+# the CPU: acceptance 0.0 in both, 0.98 in float64). The float64 chains'
+# acceptance must exceed SHMC_MIN_ACCEPT at every chain count (readings
+# 0.984-0.988 on an H100). The batched logp and gradient against the
+# unbatched path, relative to max|.|:
+# - at the float32 chains' final states (their jittered starts): float64
+#   within SHMC_F64_REL_TOL["start"] (~10x the readings on an H100,
+#   3.1e-12 / 2.3e-11); float32's batched error against float64 within
+#   SHMC_F32_VS_UNBATCHED times the unbatched float32 path's own
+#   (readings 8.0e-3 / 3.5e-2 against 7.7e-3 / 2.3e-2);
+# - at the 16 float64 chains' final states, where the noise has fallen
+#   to ~0.01 and cond(Kmm) is 1e7-1e8: float64 within
+#   SHMC_F64_REL_TOL["final"] (~10x the readings, 4.6e-11 / 1.4e-7: the
+#   batched and the single factorization round differently and the
+#   gradient amplifies it). float32 cannot evaluate these states (off
+#   float64 by more than 100%): recorded, not held.
+SHMC_M = 64
+SHMC_F64_REL_TOL = {"start": {"logp": 3.1e-11, "grad": 2.3e-10},
+                    "final": {"logp": 4.6e-10, "grad": 1.4e-6}}
+SHMC_F32_VS_UNBATCHED = 2.0
+SHMC_MIN_ACCEPT = 0.5
+
+
+def lv_data(N=None, seed=0):
+    import numpy as np
+
+    N = LV_N if N is None else N
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((N, 3)) @ rng.standard_normal((3, LV_D))
+            + 0.1 * rng.standard_normal((N, LV_D))).astype(np.float32)
+
+
+def lv_model(name, Y, dtype, **kw):
+    import numpy as np
+    from gpy_tpu_torch import models as T
+
+    c = dict(device="cuda", dtype=dtype)
+    if name == "bgplvm":
+        return T.BayesianGPLVM(Y, LV_Q, num_inducing=LV_M, **kw, **c)
+    if name == "gplvm":
+        return T.GPLVM(Y, LV_Q, **c)
+    if name == "sparse_gplvm":
+        return T.SparseGPLVM(Y, LV_Q, num_inducing=LV_M, **c)
+    if name == "mrd":
+        return T.MRD([Y[:, :6], Y[:, 6:]], LV_Q, num_inducing=LV_M, **c)
+    if name == "ssgplvm":
+        return T.SSGPLVM(Y, LV_Q, num_inducing=LV_M, **kw, **c)
+    Yn = Y.copy()
+    Yn[np.random.default_rng(5).random(Y.shape) < 0.1] = np.nan
+    return T.BayesianGPLVMMiniBatch(Yn, LV_Q, num_inducing=LV_M, **c)
+
+
+def timed_adam(m, iters):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = m.optimize(optimizer="adam", max_iters=iters, step_size=LV_STEP)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def lv_identities(Y):
+    """The float64 identities of LV_EXACT_TOL at N = 1000."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.kern.psi_comp import psi2_weighted
+    from gpy_tpu_torch.models import SparseGPRegression
+
+    f64 = torch.float64
+    out = {}
+    mb = lv_model("bgplvm", Y, f64, X_variance=np.full((LV_N, LV_Q), 1e-10))
+    with torch.no_grad():
+        bq = (mb.log_likelihood() + mb.qX.KL()).item()
+        ms = SparseGPRegression(mb.qX.mean.numpy(), Y, Z=mb.Z.numpy(),
+                                kernel=RBF(LV_Q, ARD=True, device="cuda", dtype=f64),
+                                noise_var=1.0, device="cuda", dtype=f64)
+        out["bgplvm_s0_vs_vardtc"] = rel(bq, ms.log_likelihood().item())
+        mg = lv_model("bgplvm", Y, f64)
+        mss = lv_model("ssgplvm", Y, f64, X_variance=mg.qX.variance.numpy(),
+                       Gamma=np.full((LV_N, LV_Q), 1.0 - 1e-10))
+        mss.likelihood.variance = 1.0
+        out["ssgplvm_gamma1_vs_bgplvm"] = rel((mss.log_likelihood() + mss.qX.KL(mss.pi)).item(),
+                                              (mg.log_likelihood() + mg.qX.KL()).item())
+        W = torch.ones(LV_N, dtype=f64, device="cuda")
+        streamed = psi2_weighted(mg.kern, mg.Z.values, mg.qX, W)
+        summed = torch.einsum("n,nmk->mk", W, mg.kern.psi2n(mg.Z.values, mg.qX))
+        out["streamed_psi2_vs_psi2n"] = float((streamed - summed).abs().max()
+                                              / summed.abs().max())
+    return out
+
+
+def lv_streaming():
+    """BayesianGPLVM NLML+gradient at N=50,000, M=128 in float32: its time
+    and the peak device memory over it, beside the size of a materialized
+    (N, M, M) psi2."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch import models as T
+
+    Y = lv_data(LV_STREAM_N, seed=1)
+    m = T.BayesianGPLVM(Y, LV_Q, num_inducing=LV_STREAM_M, device="cuda", dtype=torch.float32)
+    x = m.optimizer_array
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    f, g = m._objective_and_grad(x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = host_ms(lambda: m._objective_and_grad(x), reps=3, warmup=0)
+    check(math.isfinite(f) and np.isfinite(g).all(), "gplvm streaming: non-finite NLML or gradient")
+    psi2_gib = LV_STREAM_N * LV_STREAM_M**2 * 4 / 2**30
+    del m
+    torch.cuda.empty_cache()
+    return {"N": LV_STREAM_N, "M": LV_STREAM_M, "Q": LV_Q, "D": LV_D, "dtype": "float32",
+            "objective_and_grad_ms": ms, "nlml": f,
+            "peak_mem_gib": peak / 2**30, "peak_above_start_gib": (peak - base) / 2**30,
+            "materialized_psi2_gib": psi2_gib}
+
+
+def run_gplvm(rg, smi):
+    """BASELINE config 5's first half: BayesianGPLVM at bench.py's shape
+    (Adam steps/s, one NLML+gradient with its counters, profile, host syncs
+    and a float64 twin), GPLVM, SparseGPLVM, MRD, SSGPLVM and the
+    missing-data BayesianGPLVMMiniBatch at the same Y, the streaming check
+    and the float64 identities."""
+    import torch
+
+    Y = lv_data()
+    recs = {}
+    for name in LV_B1:
+        m = lv_model(name, Y, torch.float32)
+        recs[name], _ = one_evaluation(m, lambda: lv_model(name, Y, torch.float64),
+                                       f"gplvm {name}, N={LV_N} float32")
+        if name == "bgplvm":
+            with_host_syncs(recs[name], m)
+        del m
+        torch.cuda.empty_cache()
+    m = lv_model("bgplvm", Y, torch.float32)
+    f0 = m._objective_and_grad(m.optimizer_array)[0]
+    timed_adam(m, LV_ADAM_ITERS)  # warm-up
+    times, launches, res = [], None, None
+    for i in range(3):
+        reset_counters()
+        res, dt = timed_adam(m, LV_ADAM_ITERS)
+        if i == 0:
+            launches = counters()
+        times.append(dt)
+    f1 = m._objective_and_grad(m.optimizer_array)[0]
+    times.sort()
+    del m
+    torch.cuda.empty_cache()
+    adam = {"iters": LV_ADAM_ITERS, "step_size": LV_STEP, "seconds": times,
+            "steps_per_s_best": LV_ADAM_ITERS / times[0],
+            "steps_per_s_median": LV_ADAM_ITERS / times[1], "launches": launches,
+            "nlml_start": f0, "nlml_after_800_steps": f1, "f_opt_last": res.f_opt}
+    stream = lv_streaming()
+    ident = lv_identities(Y)
+    return {"phase": "gplvm", "N": LV_N, "D": LV_D, "Q": LV_Q, "M": LV_M, "dtype": "float32",
+            "models": recs, "adam": adam, "streaming": stream, "float64_identities": ident,
+            "rbf_gram_launches_expected": LV_B1, "f32_limits": LV_REL_TOL,
+            "float64_identity_limits": LV_EXACT_TOL, "nvidia_smi": smi}
+
+
+def run_sparse_hmc(smi):
+    """The batched sparse bound: HMC chains over SparseGPRegression(M=64) at
+    bench.py's HMC data, in float64 at 1 to 16 chains and in float32 at 16,
+    the counters set to 0 just before each timed sample() and read just
+    after; the batched logp and gradient at the 16 float64 chains' final
+    states against the unbatched path (float64 and float32); 16 parallel
+    restarts."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch import mcmc
+    from gpy_tpu_torch.models import SparseGPRegression
+
+    X, Y = hmc_data()
+
+    def model(dtype):
+        return SparseGPRegression(X, Y, num_inducing=SHMC_M, noise_var=0.1, device="cuda",
+                                  dtype=dtype)
+
+    evals = HMC_SAMPLES * (1 + HMC_LEAPFROG)
+
+    def chains(m, counts, tag):
+        hmc = mcmc.HMC(m, stepsize=HMC_STEP, num_leapfrog=HMC_LEAPFROG)
+        P = m.num_free_params
+        per_chain, finals, b1 = {}, {}, 0
+        for C in counts:
+            hmc.sample(num_samples=2, num_chains=C, seed=0)  # warm
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = hmc.sample(num_samples=HMC_SAMPLES, num_chains=C, seed=3)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            c = counters()
+            b1 += c["rbf_gram"]
+            check(np.isfinite(s).all() and s.shape == ((HMC_SAMPLES, P) if C == 1
+                                                       else (C, HMC_SAMPLES, P)),
+                  f"sparse_hmc {tag} C={C}: samples not finite or of the wrong shape")
+            check(c["rbf_gram"] == 2 * C * evals,
+                  f"sparse_hmc {tag} C={C}: {c['rbf_gram']} rbf_gram launches for {evals} "
+                  "evaluations")
+            check(all(v == 0 for k, v in c.items() if k != "rbf_gram"),
+                  f"sparse_hmc {tag} C={C}: unexpected launches {c}")
+            per_chain[str(C)] = {"samples_x_chains_per_s": HMC_SAMPLES * C / dt,
+                                 "seconds": dt, "accept_rate": hmc._accept_rate,
+                                 "evaluations": evals,
+                                 "rbf_gram_launches_per_evaluation": c["rbf_gram"] / evals,
+                                 "launches": c}
+            finals[C] = s[-1] if C == 1 else s[:, -1]
+        return hmc, per_chain, finals, b1
+
+    def kmm_cond(raw):
+        """min and max of cond(Kmm + jitter) over the rows of `raw`, float64."""
+        from gpy_tpu_torch.inference.var_dtc import CONST_JITTER
+
+        eye = torch.eye(SHMC_M, dtype=torch.float64, device="cuda")
+        with torch.no_grad():
+            conds = []
+            for r in raw.to("cuda"):
+                with m64.bind_flat_raw(r):
+                    ev = torch.linalg.eigvalsh((m64.kern.K(m64.Z.values)
+                                                + CONST_JITTER * eye).cpu())
+                    conds.append((ev[-1] / ev[0]).item())
+        return [min(conds), max(conds)]
+
+    m64 = model(torch.float64)
+    h64, per64, finals64, b1 = chains(m64, HMC_CHAINS, "float64")
+    m32 = model(torch.float32)
+    h32, per32, finals32, b = chains(m32, (HMC_CHAINS[-1],), "float32")
+    b1 += b
+    relerr = {}
+    for at, fin in (("start", finals32), ("final", finals64)):
+        raw = raw_from_constrained(m64, fin[HMC_CHAINS[-1]])
+        relerr[at] = {**logp_rel_errors(h32, h64, raw), "kmm_cond": kmm_cond(raw)}
+    del m64, h64, m32, h32
+    torch.cuda.empty_cache()
+
+    # 16 parallel restarts, float32 and float64 from the same inits: Z is
+    # free (128 of the 131 parameters), and float32 Adam can walk Kmm past
+    # what float32 factors (PERF.md: the collapsed bounds' float32 fit), so
+    # the restarts are judged in float64 and float32's kept point is read
+    # again in float64
+    restarts = {}
+    for dtype in (torch.float32, torch.float64):
+        mr = model(dtype)
+        f_start = float(mr.objective_function().detach())
+        reset_counters()
+        t0 = time.perf_counter()
+        res = mr.optimize_restarts(parallel=True, num_restarts=HMC_RESTARTS, max_iters=100,
+                                   step_size=0.03, seed=0, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = counters()
+        b1 += launched["rbf_gram"]
+        kept = float(mr.objective_function().detach())
+        m64 = model(torch.float64)
+        m64.set_flat_raw(mr.get_flat_raw().double())
+        kept_f64 = float(m64.objective_function().detach())
+        restarts[str(dtype).replace("torch.", "")] = {
+            "num_restarts": HMC_RESTARTS, "max_iters": 100, "step_size": 0.03, "seconds": dt,
+            "launches": launched, "objective_start": f_start, "kept": kept,
+            "kept_in_float64": kept_f64, "objectives": [r.f_opt for r in res]}
+        del mr
+    m64.optimize()  # L-BFGS-B in float64 from the kept restart: how far Adam stopped short
+    restarts["float64"]["lbfgsb_from_kept"] = float(m64.objective_function().detach())
+    del m64
+    torch.cuda.empty_cache()
+    return {"phase": "sparse_hmc", "N": HMC_N, "D": HMC_D, "M": SHMC_M, "dtype": "float64",
+            "num_samples": HMC_SAMPLES, "num_leapfrog": HMC_LEAPFROG, "stepsize": HMC_STEP,
+            "by_chains": per64, "float32_chains": per32, "batched_vs_unbatched": relerr,
+            "limits": {"float64": SHMC_F64_REL_TOL,
+                       "f32_vs_unbatched_factor": SHMC_F32_VS_UNBATCHED,
+                       "min_accept_float64": SHMC_MIN_ACCEPT},
+            "restarts": restarts, "rbf_gram_launches": b1, "nvidia_smi": smi}
+
+
+def run_latent(rg, smi):
+    """BASELINE config 5 on the card: B1 checked and timed at the latent
+    models' shapes, then the gplvm and sparse_hmc phases. Every record is
+    printed before the limits are applied. Returns B1's launches on these
+    paths, its checks and its times."""
+    import torch
+
+    shapes = ((LV_M, LV_M, LV_Q), (LV_N, LV_N, LV_Q), (LV_M, LV_N, LV_Q),
+              (SHMC_M, SHMC_M, HMC_D), (SHMC_M, HMC_N, HMC_D))
+    t0 = time.perf_counter()
+    b1_checks = [check_rbf_gram(rg, *s, dt) for s in shapes
+                 for dt in (torch.float32, torch.float64)]
+    b1_times = [time_rbf_gram(rg, *s) for s in shapes]
+    b1_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lv = run_gplvm(rg, smi)
+    lv.update({"seconds": time.perf_counter() - t0, "rbf_gram_seconds": b1_seconds,
+               "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times})
+    emit(lv)
+    t0 = time.perf_counter()
+    sh = run_sparse_hmc(smi)
+    sh["seconds"] = time.perf_counter() - t0
+    emit(sh)
+
+    for name, tols in LV_REL_TOL.items():
+        for k, tol in tols.items():
+            v = lv["models"][name][f"{k}_rel_f32_vs_f64"]
+            check(v <= tol, f"gplvm {name}: float32 vs float64 {k}: rel {v} > {tol}")
+    for name, want in LV_B1.items():
+        got = lv["models"][name]["rbf_gram_launches"]
+        check(got == want, f"gplvm {name}: {got} rbf_gram launches an evaluation, not {want}")
+    adam = lv["adam"]
+    check(adam["launches"]["rbf_gram"] == LV_ADAM_ITERS
+          and all(v == 0 for k, v in adam["launches"].items() if k != "rbf_gram"),
+          f"gplvm adam: launches {adam['launches']} in {LV_ADAM_ITERS} steps, not one B1 a step")
+    check(adam["nlml_after_800_steps"] < adam["nlml_start"],
+          f"gplvm adam: the objective did not fall ({adam['nlml_start']} -> "
+          f"{adam['nlml_after_800_steps']})")
+    st = lv["streaming"]
+    check(st["peak_mem_gib"] < 0.5 * st["materialized_psi2_gib"],
+          f"gplvm streaming: peak {st['peak_mem_gib']} GiB is not well under the "
+          f"{st['materialized_psi2_gib']} GiB of a materialized psi2")
+    for k, tol in LV_EXACT_TOL.items():
+        v = lv["float64_identities"][k]
+        check(v <= tol, f"gplvm float64 identity {k}: rel {v} > {tol}")
+    for at, tols in SHMC_F64_REL_TOL.items():
+        for q, tol in tols.items():
+            v = sh["batched_vs_unbatched"][at][f"f64_{q}_vs_unbatched"]
+            check(v <= tol, f"sparse_hmc: float64 batched vs unbatched {q} at the {at} "
+                  f"states: rel {v} > {tol}")
+    for q in ("logp", "grad"):
+        v = sh["batched_vs_unbatched"]["start"][f"f32_{q}_vs_f64"]
+        own = sh["batched_vs_unbatched"]["start"][f"f32_unbatched_{q}_vs_f64"]
+        check(v <= SHMC_F32_VS_UNBATCHED * own,
+              f"sparse_hmc: the float32 batched {q} is off float64 by {v}, more than "
+              f"{SHMC_F32_VS_UNBATCHED} x the unbatched float32 path's {own}")
+    for C, r in sh["by_chains"].items():
+        check(r["accept_rate"] > SHMC_MIN_ACCEPT,
+              f"sparse_hmc float64 C={C}: acceptance {r['accept_rate']}")
+    for name, r in sh["restarts"].items():
+        launched = r["launches"]
+        check(launched["rbf_gram"] == 2 * HMC_RESTARTS * 101
+              and all(v == 0 for k, v in launched.items() if k != "rbf_gram"),
+              f"sparse restarts {name}: launches {launched}, not 2 B1 a row an evaluation")
+    r = sh["restarts"]["float64"]
+    finite = [f for f in r["objectives"] if math.isfinite(f)]
+    check(finite and r["kept"] < r["objective_start"]
+          and abs(r["kept"] - min(finite)) <= 1e-6 * abs(r["kept"]),
+          f"sparse restarts float64: kept {r['kept']}, start {r['objective_start']}, "
+          f"restarts {r['objectives']}")
+    launches_lv = (sum(r["rbf_gram_launches"] for r in lv["models"].values())
+                   + adam["launches"]["rbf_gram"])
+    return {"launches_gplvm": launches_lv, "launches_sparse_hmc": sh["rbf_gram_launches"],
+            "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
+
+
 def run_svgp(rg, smi):
     """The flagship main path: SVGP.fit at bench.py's configuration, uncut.
     bench.py's warm-up (two fit(iters=100)) with the counters set to 0 just
@@ -2988,6 +3410,8 @@ def main() -> int:
     cls_rec = run_cls(rg, smi)
     # multi-output GPs, BASELINE config 4's second half
     multi_rec = run_multi(rg, smi)
+    # latent-variable models and sparse HMC, BASELINE config 5
+    latent_rec = run_latent(rg, smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -3001,20 +3425,25 @@ def main() -> int:
                                                 for t in ("fused", "auto"))
         + hmc_rec["launches"]["rbf_gram"] + svgp_rec["launches"]["rbf_gram"]
         + sparse_rec["launches"] + cls_rec["launches"] + multi_rec["launches_coreg"]
-        + multi_rec["launches_multioutput"],
+        + multi_rec["launches_multioutput"] + latent_rec["launches_gplvm"]
+        + latent_rec["launches_sparse_hmc"],
         "launches_svgp": svgp_rec["launches"]["rbf_gram"],
         "launches_sparse": sparse_rec["launches"],
         "launches_classification": cls_rec["launches"],
         "launches_coreg": multi_rec["launches_coreg"],
         "launches_multioutput": multi_rec["launches_multioutput"],
+        "launches_gplvm": latent_rec["launches_gplvm"],
+        "launches_sparse_hmc": latent_rec["launches_sparse_hmc"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
                            + sparse_rec["rbf_gram_checks"] + cls_rec["rbf_gram_checks"]
-                           + multi_rec["rbf_gram_checks"] if c["dtype"] == "float32"),
+                           + multi_rec["rbf_gram_checks"] + latent_rec["rbf_gram_checks"]
+                           if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
         "svgp_shapes": svgp_rec["rbf_gram_times"], "sparse_shapes": sparse_rec["rbf_gram_times"],
         "classification_shapes": cls_rec["rbf_gram_times"],
         "multi_output_shapes": multi_rec["rbf_gram_times"],
+        "latent_shapes": latent_rec["rbf_gram_times"],
     }, {
         "name": "gram_matvec_fused", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",

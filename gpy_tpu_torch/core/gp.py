@@ -82,9 +82,14 @@ class GP(Model):
         return torch.tensor(np.asarray(A, dtype=np.float64), dtype=self.dtype, device=self.device)
 
     # --- objective ---------------------------------------------------------
+    def _inputs(self) -> torch.Tensor:
+        """The inputs the kernel is evaluated at: X here, the latent X of a
+        GPLVM (a parameter, or the mapping of Y in BCGPLVM)."""
+        return self.X
+
     def log_likelihood(self) -> torch.Tensor:
         return self.inference_method.marginal_likelihood(
-            self.kern, self.X, self.likelihood, self.Y_normalized, None, self.Y_metadata)
+            self.kern, self._inputs(), self.likelihood, self.Y_normalized, None, self.Y_metadata)
 
     def _batched_objective(self, flats: torch.Tensor) -> torch.Tensor:
         """(C,) objectives at the rows of `flats` (Model._batched_objective).
@@ -92,12 +97,16 @@ class GP(Model):
         Each row's noisy Gram is built under its binding (one Gram kernel
         launch per row on the card), the C Grams are stacked and go through
         the inference's batched form once: one batched factorization per
-        evaluation. Inference without a batched form raises."""
+        evaluation. The rows of an inference without a batched form (no
+        `noisy_gram`: EP, Laplace) are evaluated one after the other."""
         inf = self.inference_method
+        if not hasattr(inf, "noisy_gram"):
+            return torch.stack([self._flat_objective(row) for row in flats])
         Kys, log_priors = [], []
         for row in flats:
             with self.bind_flat_raw(row):
-                Kys.append(inf.noisy_gram(self.kern, self.X, self.likelihood, self.Y_metadata))
+                Kys.append(inf.noisy_gram(self.kern, self._inputs(), self.likelihood,
+                                          self.Y_metadata))
                 log_priors.append(self.log_prior())
         ll = inf.batched_log_marginal(torch.stack(Kys), self.Y_normalized)
         return -ll - torch.stack(log_priors)
@@ -120,18 +129,23 @@ class GP(Model):
 
     def _compute_posterior(self):
         return self.inference_method.inference(
-            self.kern, self.X, self.likelihood, self.Y_normalized, None, self.Y_metadata)[0]
+            self.kern, self._inputs(), self.likelihood, self.Y_normalized, None,
+            self.Y_metadata)[0]
 
     # --- prediction --------------------------------------------------------
     @property
     def _predictive_variable(self) -> torch.Tensor:
-        """The inputs the posterior's woodbury terms refer to: X here, the
-        inducing inputs Z of a sparse GP (gpy_tpu/core/gp.py:87)."""
-        return self.X
+        """The inputs the posterior's woodbury terms refer to: X (or a
+        GPLVM's latent X) here, the inducing inputs Z of a sparse GP
+        (gpy_tpu/core/gp.py:87)."""
+        return self._inputs()
 
     def _raw_predict(self, Xnew, full_cov=False, kern=None):
+        """Xnew is an input array, or a q(X*) with .mean and .variance (a
+        NormalPosterior): then the psi-statistics prediction."""
         kern = self.kern if kern is None else kern
-        Xnew = self._as_data(Xnew)
+        if not (hasattr(Xnew, "mean") and hasattr(Xnew, "variance")):
+            Xnew = self._as_data(Xnew)
         post = self.posterior
         with torch.no_grad():
             return post._raw_predict(kern, Xnew, self._predictive_variable, full_cov)

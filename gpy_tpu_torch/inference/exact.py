@@ -107,22 +107,10 @@ class LatentFunctionInference:
         pass
 
     # --- the batched form: C models of one data set, one factorization ----
-    # the ROADMAP item under which an inference without a batched form gets one
-    batched_roadmap_item = "A10"
-
-    def _no_batched_form(self):
-        return NotImplementedError(
-            f"{type(self).__name__} has no batched form (HMC chains, parallel restarts) "
-            f"yet: ROADMAP {self.batched_roadmap_item}")
-
-    def noisy_gram(self, kern, X, likelihood, Y_metadata=None):
-        """K + diag(noise) of one model, the operand `batched_log_marginal`
-        stacks. Inference without a batched form raises."""
-        raise self._no_batched_form()
-
-    def batched_log_marginal(self, Kys, Y):
-        """log p(Y) of C models from their stacked (C, N, N) noisy Grams."""
-        raise self._no_batched_form()
+    # An inference with one defines noisy_gram(kern, X, likelihood,
+    # Y_metadata) -> K + diag(noise) of one model, the operand that
+    # batched_log_marginal(Kys, Y) takes stacked as (C, N, N). GP evaluates
+    # the rows of an inference without it one after the other.
 
 
 def _noisy(K, likelihood, Y_metadata=None):

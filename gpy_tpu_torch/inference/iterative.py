@@ -173,8 +173,6 @@ class IterativeGaussianInference(LatentFunctionInference):
     It has no batched form: the reference reaches it unbatched only.
     """
 
-    batched_roadmap_item = "A13"
-
     def __init__(self, max_cg=64, n_probes=8, block=2048, seed=0, materialize="auto",
                  materialize_max_n=50_000, precond_rank=0, gram_dtype=None, fused=False,
                  fused_accum="f32x3", fast_grad="auto"):
@@ -192,6 +190,11 @@ class IterativeGaussianInference(LatentFunctionInference):
         self.fused = fused
         self.fused_accum = fused_accum
         self.fast_grad = fast_grad
+
+    def noisy_gram(self, kern, X, likelihood, Y_metadata=None):
+        raise NotImplementedError(
+            "IterativeGaussianInference has no batched form (HMC chains, parallel restarts) "
+            "yet: ROADMAP A13")
 
     # --- probes (one draw each, so a test can hand in other probes) --------
     def _generator(self, device):

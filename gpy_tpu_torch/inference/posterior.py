@@ -1,8 +1,9 @@
 """Posterior container: woodbury representation + prediction math.
 
 Counterpart of gpy_tpu/inference/posterior.py:19-121 (GPy/inference/
-latent_function_inference/posterior.py). Prediction at uncertain inputs
-(the psi-statistics branch) waits for the latent-variable slice.
+latent_function_inference/posterior.py). At uncertain inputs, a q(X*)
+with .mean and .variance, prediction goes through the psi statistics
+(GPy posterior.py:249-270).
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ class Posterior:
         return self._K
 
     def _raw_predict(self, kern, Xnew, pred_var, full_cov: bool = False):
+        if hasattr(Xnew, "mean") and hasattr(Xnew, "variance"):
+            return self._raw_predict_uncertain(kern, Xnew, pred_var, full_cov)
         Kx = kern.K(pred_var, Xnew)  # (M, N*)
         mu = Kx.T @ self.woodbury_vector
         if full_cov:
@@ -63,3 +66,21 @@ class Posterior:
                 var = (Kxx - torch.sum(Kx * (self.woodbury_inv @ Kx), dim=0))[:, None]
             var = torch.clamp(var, min=1e-15)
         return mu, var
+
+    def _raw_predict_uncertain(self, kern, qX, pred_var, full_cov):
+        """Mean and total variance at q(X*) = prod_n N(mu_n, diag S_n):
+            mu_*  = psi1 la,  la = woodbury_vector
+            var_* = la' (psi2_n - psi1 psi1') la + psi0 - tr(Winv psi2_n)
+        (E_q Var[f | x] + Var_q E[f | x])."""
+        if full_cov:
+            raise NotImplementedError("full_cov with uncertain inputs is not implemented "
+                                      "(as GPy posterior.py:258)")
+        psi0 = kern.psi0(pred_var, qX)
+        psi1 = kern.psi1(pred_var, qX)
+        psi2n = kern.psi2n(pred_var, qX)
+        la = self.woodbury_vector
+        mu = psi1 @ la
+        tmp = psi2n - psi1[:, :, None] * psi1[:, None, :]
+        var = torch.einsum("nmk,md,kd->nd", tmp, la, la) + psi0[:, None]
+        var = var - torch.einsum("nmk,mk->n", psi2n, self.woodbury_inv)[:, None]
+        return mu, torch.clamp(var, min=1e-15)

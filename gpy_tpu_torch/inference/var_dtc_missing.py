@@ -6,8 +6,14 @@ A missing (n, d) entry (NaN in Y) gets the noise precision W_nd = 0, so the
 output columns' bounds differ only in their weights. The reference vmaps one
 bound over the columns; here they are a batch: Kmn sqrt(W_d) as (D, M, N)
 and one batched jitchol of (D, M, M), which stays torch's native batched
-Cholesky as the reference's vmapped jitchol stays XLA's. Uncertain inputs
-(the psi statistics) wait for ROADMAP A12.
+Cholesky as the reference's vmapped jitchol stays XLA's. Under a q(X) (the
+BayesianGPLVMMiniBatch with missing entries) psi1 takes Kmn's place and each
+column's sum_n W_nd psi2_n its squared Gram, from the one (N, M, M) psi2n,
+as in the reference.
+
+It has no batched form of its own: SparseGP evaluates C models of it (HMC
+chains, parallel restarts) one after the other, each with its D columns
+batched.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import torch
 from ..util.linalg import dtrtrs, jitchol, jitchol_and_inv
 from .exact import LatentFunctionInference
 from .posterior import Posterior
-from .var_dtc import CONST_JITTER, LOG_2_PI, _certain_inputs, _woodbury
+from .var_dtc import CONST_JITTER, LOG_2_PI, _woodbury
 
 __all__ = ["VarDTCMissingData"]
 
@@ -27,7 +33,6 @@ class VarDTCMissingData(LatentFunctionInference):
         one output column each."""
         if mean_function is not None:
             raise NotImplementedError("VarDTC with a mean function: subtract it from Y")
-        _certain_inputs(qX)
         M = Z.shape[0]
         obs = ~torch.isnan(Y)  # (N, D)
         Y0 = torch.where(obs, Y, torch.zeros_like(Y))
@@ -36,12 +41,19 @@ class VarDTCMissingData(LatentFunctionInference):
         eye = torch.eye(M, dtype=Z.dtype, device=Z.device)
         Kmm = kern.K(Z) + CONST_JITTER * eye
         L, Li = jitchol_and_inv(Kmm)
-        Kmn = kern.K(Z, X)  # (M, N)
         # the double where keeps the gradients of sqrt and log finite at W = 0
         W_safe = torch.where(obs, W, torch.ones_like(W))
-        sqrtW = torch.where(obs, torch.sqrt(W_safe), torch.zeros_like(W))
-        A = Li @ (Kmn[None] * sqrtW.T[:, None, :])  # (D, M, N)
-        AAT = A @ A.mT
+        if qX is None:
+            Kmn = kern.K(Z, X)  # (M, N)
+            psi0 = kern.Kdiag(X)
+            sqrtW = torch.where(obs, torch.sqrt(W_safe), torch.zeros_like(W))
+            A = Li @ (Kmn[None] * sqrtW.T[:, None, :])  # (D, M, N)
+            AAT = A @ A.mT
+        else:
+            Kmn = kern.psi1(Z, qX).T
+            psi0 = kern.psi0(Z, qX)
+            AAT = Li @ torch.einsum("nd,nmk->dmk", W, kern.psi2n(Z, qX)) @ Li.T
+            AAT = 0.5 * (AAT + AAT.mT)
         LB = jitchol(eye + AAT)
         psi1WY = Kmn @ (W * Y0)  # (M, D)
         c = dtrtrs(LB, dtrtrs(L, psi1WY).T[:, :, None])
@@ -51,7 +63,7 @@ class VarDTCMissingData(LatentFunctionInference):
             - torch.sum(torch.log(torch.diagonal(LB, dim1=-2, dim2=-1)))
             - 0.5 * torch.sum(W * Y0 * Y0)
             + 0.5 * torch.sum(c * c)
-            - 0.5 * (torch.sum(W * kern.Kdiag(X)[:, None])
+            - 0.5 * (torch.sum(W * psi0[:, None])
                      - torch.sum(torch.diagonal(AAT, dim1=-2, dim2=-1)))
         )
         return log_marginal, Kmm, L, LB, c

@@ -3,8 +3,10 @@
 Counterpart of gpy_tpu/kern/kern.py:27-206 (GPy/kern/src/kern.py and the
 active_dims slicing of kernel_slice_operations.py). A kernel is a Module
 whose `K(X, X2)` is a function of tensors; gradients with respect to
-parameters and inputs come from autograd. The psi statistics of the
-reference wait for the latent-variable slice (ROADMAP A12).
+parameters and inputs come from autograd. The psi statistics (kernel
+expectations under a q(X), kern/psi_comp.py) default to Gauss-Hermite
+quadrature; RBF, Linear, Bias and White have closed forms, and Add adds the
+cross terms of its parts.
 """
 from __future__ import annotations
 
@@ -51,6 +53,27 @@ class Kern(Module):
 
     def Kdiag(self, X):
         raise NotImplementedError
+
+    # --- uncertain-input psi statistics (GPy kern.py:146-170) -------------
+    # qX: a NormalPosterior-like q(X) with .mean and .variance, (N, Q)
+    def psi0(self, Z, qX):
+        from .psi_comp import psi0_quadrature
+
+        return psi0_quadrature(self, Z, qX)
+
+    def psi1(self, Z, qX):
+        from .psi_comp import psi1_quadrature
+
+        return psi1_quadrature(self, Z, qX)
+
+    def psi2(self, Z, qX):
+        """sum_n psi2n, (M, M)."""
+        return torch.sum(self.psi2n(Z, qX), dim=0)
+
+    def psi2n(self, Z, qX):
+        from .psi_comp import psi2n_quadrature
+
+        return psi2n_quadrature(self, Z, qX)
 
     def _k_pair(self, x, x2):
         """k(x, x2) of two single points, shape (input columns,), in torch
@@ -113,6 +136,41 @@ class Add(CombinationKernel):
 
     def _k_pair(self, x, x2):
         return sum(p._k_pair(x, x2) for p in self.parts)
+
+    def psi0(self, Z, qX):
+        return sum(p.psi0(Z, qX) for p in self.parts)
+
+    def psi1(self, Z, qX):
+        return sum(p.psi1(Z, qX) for p in self.parts)
+
+    def psi2n(self, Z, qX):
+        """The parts' psi2n plus the cross terms <K_i(x, Z_m) K_j(x, Z_m')>
+        of every pair (gpy_tpu/kern/kern.py:138-170): the exact closed forms
+        of psi_comp.cross_psi2n_exact where they exist; else Gauss-Hermite
+        quadrature for a Gaussian q(X) with Q <= 4; else, with a warning, the
+        product of the two psi1 (biased on overlapping dimensions)."""
+        import warnings
+
+        from .psi_comp import cross_psi2n_exact, cross_psi2n_quadrature, moments
+
+        total = sum(p.psi2n(Z, qX) for p in self.parts)
+        for i in range(len(self.parts)):
+            for j in range(i + 1, len(self.parts)):
+                p1, p2 = self.parts[i], self.parts[j]
+                cross = cross_psi2n_exact(p1, p2, Z, qX)
+                if cross is None:
+                    q = moments(qX)
+                    Q = q.mean.shape[1]
+                    if Q <= 4 and not hasattr(q, "gamma"):
+                        cross = cross_psi2n_quadrature(p1, p2, Z, qX)
+                    else:
+                        warnings.warn(
+                            f"Add.psi2: no exact cross term for {type(p1).__name__} x "
+                            f"{type(p2).__name__} on overlapping active_dims (Q={Q}); using "
+                            "the product-of-psi1 approximation (biased bound).", stacklevel=2)
+                        cross = p1.psi1(Z, qX)[:, :, None] * p2.psi1(Z, qX)[:, None, :]
+                total = total + cross + cross.transpose(1, 2)
+        return total
 
 
 class Prod(CombinationKernel):

@@ -4,7 +4,8 @@ Counterpart of gpy_tpu/kern/linear.py:18-174 (GPy/kern/src/linear.py
 Linear:21, LinearFull:183; trunclinear.py TruncLinear:11,
 TruncLinear_inf:95). The products stay torch.matmul, as the reference's stay
 outside any Pallas kernel; float32 runs them with TF32 off (config.py).
-Linear's psi statistics wait for the latent-variable slice (ROADMAP A12).
+Linear has the closed-form psi statistics (kern/psi_comp.py), Gaussian or
+spike-and-slab by the type of q(X).
 """
 from __future__ import annotations
 
@@ -13,11 +14,12 @@ import torch
 
 from ..core.transformations import Logexp
 from .kern import Kern
+from .psi_comp import PSICOMP_Linear, PSICOMP_SSLinear, ClosedFormPsi
 
 __all__ = ["Linear", "LinearFull", "TruncLinear", "TruncLinear_inf"]
 
 
-class Linear(Kern):
+class Linear(ClosedFormPsi, Kern):
     """k(x, x') = sum_q v_q x_q x'_q. GPy: linear.py:21."""
 
     def __init__(self, input_dim, variances=None, ARD=False, active_dims=None, name="linear",
@@ -40,11 +42,9 @@ class Linear(Kern):
         X = self._slice(X)
         return torch.sum(self.variances.values * X * X, dim=-1)
 
-    def psi0(self, Z, qX):
-        raise NotImplementedError("the Linear kernel's psi statistics (uncertain inputs) are "
-                                  "not ported yet (ROADMAP A12)")
-
-    psi1 = psi2n = psi0
+    # spike-and-slab q(X) takes GPy's sslinear_psi_comp.py forms
+    def _pc(self, q):
+        return PSICOMP_SSLinear() if hasattr(q, "gamma") else PSICOMP_Linear()
 
     def input_sensitivity(self, summarize=True):
         return np.broadcast_to(self.variances.numpy().reshape(-1), (self.input_dim,))

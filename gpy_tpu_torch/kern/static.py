@@ -1,8 +1,9 @@
 """Static kernels (no dependence on X values): White, Bias, Fixed,
 WhiteHeteroscedastic and Precomputed.
 
-Counterpart of gpy_tpu/kern/static.py:23-119 (GPy/kern/src/static.py). The
-psi statistics wait for the latent-variable slice (ROADMAP A12).
+Counterpart of gpy_tpu/kern/static.py:23-119 (GPy/kern/src/static.py).
+White and Bias have closed-form psi statistics; the others take the base
+class's quadrature.
 """
 from __future__ import annotations
 
@@ -37,6 +38,16 @@ class White(Static):
             return self.variance.values * torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
         return torch.zeros((X.shape[0], X2.shape[0]), dtype=X.dtype, device=X.device)
 
+    def psi0(self, Z, qX):
+        return self.variance.values * torch.ones(qX.mean.shape[0], dtype=Z.dtype, device=Z.device)
+
+    def psi1(self, Z, qX):
+        return torch.zeros((qX.mean.shape[0], Z.shape[0]), dtype=Z.dtype, device=Z.device)
+
+    def psi2n(self, Z, qX):
+        M = Z.shape[0]
+        return torch.zeros((qX.mean.shape[0], M, M), dtype=Z.dtype, device=Z.device)
+
 
 class Bias(Static):
     """Constant covariance v."""
@@ -48,6 +59,18 @@ class Bias(Static):
     def K(self, X, X2=None):
         n2 = X.shape[0] if X2 is None else X2.shape[0]
         return self.variance.values * torch.ones((X.shape[0], n2), dtype=X.dtype, device=X.device)
+
+    def psi0(self, Z, qX):
+        return self.variance.values * torch.ones(qX.mean.shape[0], dtype=Z.dtype, device=Z.device)
+
+    def psi1(self, Z, qX):
+        return self.variance.values * torch.ones((qX.mean.shape[0], Z.shape[0]), dtype=Z.dtype,
+                                                 device=Z.device)
+
+    def psi2n(self, Z, qX):
+        M = Z.shape[0]
+        return self.variance.values**2 * torch.ones((qX.mean.shape[0], M, M), dtype=Z.dtype,
+                                                    device=Z.device)
 
 
 class Fixed(Static):

@@ -7,8 +7,9 @@ evaluate K_of_r(safe_sqrt(r2)) in torch ops (RatQuad its K on r2).
 `_k_pair`, the same function of one pair of points, is what DiffKern
 differentiates by torch.func. Matern32, Matern52 and Exponential are also
 the families the fused Gram-matvec (ops/gram_matvec_fused.py) dispatches
-on. The sde() forms wait for the
-state-space slice (ROADMAP A14), the RBF psi statistics for A12.
+on. RBF has the closed-form psi statistics (kern/psi_comp.py), Gaussian or
+spike-and-slab by the type of q(X). The sde() forms wait for the
+state-space slice (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..core.transformations import Logexp
 from ..ops.rbf_gram import rbf_gram, scaled_dist2
 from ..util.linalg import safe_sqrt
 from .kern import Kern
+from .psi_comp import PSICOMP_RBF, PSICOMP_SSRBF, ClosedFormPsi, rbf_psi1, slice_psi_inputs
 
 __all__ = ["Stationary", "RBF", "ExpQuad", "Exponential", "OU", "Matern32", "Matern52", "Cosine",
            "ExpQuadCosine", "Sinc", "RatQuad"]
@@ -86,7 +88,7 @@ class Stationary(Kern):
         return v / ls**2
 
 
-class RBF(Stationary):
+class RBF(ClosedFormPsi, Stationary):
     """Radial basis / squared-exponential. GPy: kern/src/rbf.py:16."""
 
     def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
@@ -103,6 +105,15 @@ class RBF(Stationary):
     def _K_of_r2(self, r2):
         # no square root, as K: the derivative covariances at r = 0 are v/l^2
         return self.variance.values * torch.exp(-0.5 * r2)
+
+    # closed-form psi statistics (GPy rbf_psi_comp.py); a spike-and-slab
+    # q(X) takes the spike-and-slab forms (GPy ssrbf_psi_comp.py)
+    def _pc(self, q):
+        return PSICOMP_SSRBF() if hasattr(q, "gamma") else PSICOMP_RBF()
+
+    def psi1(self, Z, qX):
+        Z, q = slice_psi_inputs(self, Z, qX)
+        return rbf_psi1(self, self._pc(q), Z, q)
 
 
 class ExpQuad(RBF):

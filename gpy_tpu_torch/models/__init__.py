@@ -4,16 +4,20 @@ from .gp_classification import GPClassification, GPClassificationLaplace
 from .gp_coregionalized_regression import (GPCoregionalizedRegression, GPHeteroscedasticRegression,
                                           GPOffsetRegression, SparseGPCoregionalizedRegression)
 from .gp_regression import GPRegression
+from .gplvm import BCGPLVM, GPLVM, MRD, BayesianGPLVM, DPBayesianGPLVM, SparseGPLVM
 from .multioutput_gp import MultioutputGP
 from .one_vs_all_classification import OneVsAllClassification, OneVsAllSparseClassification
-# SparseGPClassificationUncertainInput stays in its module until A12 brings
-# uncertain inputs: it raises there
-from .sparse_gp_classification import SparseGPClassification
+from .sparse_gp_classification import (SparseGPClassification,
+                                       SparseGPClassificationUncertainInput)
+from .sparse_gp_minibatch import BayesianGPLVMMiniBatch, SparseGPMiniBatch
 from .sparse_gp_regression import SparseGPRegression, SparseGPRegressionMD
+from .ss_gplvm import SSGPLVM, SSMRD
 
 __all__ = ["GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression",
            "SparseGPRegressionMD", "SVGP", "GPClassification", "GPClassificationLaplace",
            "SparseGPClassification",
            "OneVsAllClassification", "OneVsAllSparseClassification",
            "GPCoregionalizedRegression", "SparseGPCoregionalizedRegression", "GPOffsetRegression",
-           "MultioutputGP"]
+           "MultioutputGP", "SparseGPClassificationUncertainInput", "GPLVM", "SparseGPLVM",
+           "BayesianGPLVM", "BayesianGPLVMMiniBatch", "SparseGPMiniBatch", "MRD", "SSGPLVM",
+           "SSMRD", "BCGPLVM", "DPBayesianGPLVM"]

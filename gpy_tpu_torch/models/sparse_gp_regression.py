@@ -1,10 +1,13 @@
 """SparseGPRegression (VarDTC, FITC, DTC or PEP) and SparseGPRegressionMD.
 
 Counterpart of gpy_tpu/models/sparse_gp_regression.py:21-139 (GPy/models/
-sparse_gp_regression.py, sparse_gp_regression_md.py). Uncertain inputs
-(X_variance) wait for ROADMAP A12.
+sparse_gp_regression.py, sparse_gp_regression_md.py). With X_variance the
+inputs are uncertain, X ~ N(X, X_variance), fixed data: the VarDTC bound
+takes the psi statistics of that q(X) instead of the Grams.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -39,9 +42,8 @@ class SparseGPRegression(SparseGP):
     def __init__(self, X, Y, kernel=None, Z=None, num_inducing=10, mean_function=None,
                  X_variance=None, normalizer=None, noise_var=1.0, infer="vardtc",
                  pep_alpha=0.5, name="sparse_gp", device=None, dtype=None):
-        if X_variance is not None:
-            raise NotImplementedError("uncertain inputs (X_variance) are not ported yet "
-                                      "(ROADMAP A12)")
+        if X_variance is not None and not (infer == "vardtc" or isinstance(infer, VarDTC)):
+            raise ValueError("uncertain inputs need the VarDTC bound")
         if isinstance(infer, str):
             methods = {"vardtc": VarDTC, "fitc": FITC, "dtc": DTC, "pep": lambda: PEP(pep_alpha)}
             if infer not in methods:
@@ -54,6 +56,13 @@ class SparseGPRegression(SparseGP):
         super().__init__(X, Y, Z, kernel, Gaussian(variance=noise_var, device=device, dtype=dtype),
                          inference_method=infer, mean_function=mean_function, name=name,
                          normalizer=normalizer, device=device, dtype=dtype)
+        self._X_variance = None if X_variance is None else self._as_data(X_variance)
+
+    def _bound_args(self):
+        args = super()._bound_args()
+        if self._X_variance is None:
+            return args
+        return args[:-1] + (SimpleNamespace(mean=self.X, variance=self._X_variance),)
 
 
 class SparseGPRegressionMD(SparseGP):

@@ -1,3 +1,3 @@
-from . import choleskies, convert, linalg, multioutput
+from . import choleskies, convert, initialization, linalg, multioutput, pca
 
-__all__ = ["linalg", "convert", "choleskies", "multioutput"]
+__all__ = ["linalg", "convert", "choleskies", "multioutput", "initialization", "pca"]

@@ -41,13 +41,17 @@ SURFACES = {
         "GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression", "SVGP",
         "GPClassification", "SparseGPClassification", "OneVsAllClassification",
         "OneVsAllSparseClassification", "GPCoregionalizedRegression",
-        "SparseGPCoregionalizedRegression", "GPOffsetRegression", "MultioutputGP"}),
+        "SparseGPCoregionalizedRegression", "GPOffsetRegression", "MultioutputGP",
+        "SparseGPClassificationUncertainInput", "GPLVM", "SparseGPLVM", "BayesianGPLVM",
+        "BayesianGPLVMMiniBatch", "SparseGPMiniBatch", "MRD", "SSGPLVM", "SSMRD", "BCGPLVM",
+        "DPBayesianGPLVM"}),
     "GPY_INFERENCE": ("gpy_tpu_torch.inference", {
         "ExactGaussianInference", "VarDTC", "VarDTC_minibatch", "VarDTCMissingData", "FITC",
         "DTC", "PEP", "SVGPInference", "Laplace", "LaplaceBlock", "EP", "EPDTC"}),
     "GPY_PRIORS": ("gpy_tpu_torch.core.priors", {
         "Gaussian", "Uniform", "LogGaussian", "MultivariateGaussian", "Gamma",
-        "InverseGamma", "Exponential", "StudentT", "HalfT"}),
+        "InverseGamma", "Exponential", "StudentT", "HalfT", "DGPLVM", "DGPLVM_Lamda",
+        "DGPLVM_T", "DGPLVM_KFDA"}),
 }
 
 
@@ -77,3 +81,4 @@ def test_port_names_beyond_the_reference_lists():
     from gpy_tpu_torch.ops.block_chol import (batched_chol_inv, batched_chol_inv_ll,  # noqa
                                               block_chol, block_chol_inv, rec_block_chol_inv)
     from gpy_tpu_torch.ops.blocked_linalg import rec_chol_inv, tri_inv_doubling  # noqa
+    from gpy_tpu_torch.ops.psi2 import rbf_psi2_weighted, ss_rbf_psi2_weighted  # noqa

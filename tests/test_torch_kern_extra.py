@@ -120,10 +120,20 @@ def test_kernel_matches_reference(name, ARD):
 
 
 def test_linear_psi_statistics_wait_for_a12():
-    k = tk.Linear(2, device="cpu")
-    for f in (k.psi0, k.psi1, k.psi2n):
-        with pytest.raises(NotImplementedError, match="A12"):
-            f(None, None)
+    """A12 ported the Linear kernel's psi statistics: psi0, psi1 and psi2n
+    under a q(X) against the reference's closed forms, rel 1e-12 (the full
+    comparison is in tests/test_torch_psi_stats.py)."""
+    from gpy_tpu.core.variational import NormalPosterior as JNormalPosterior
+    from gpy_tpu_torch.core.variational import NormalPosterior
+
+    g = np.random.default_rng(3)
+    mu, S, Z = g.standard_normal((7, 2)), 0.1 + g.random((7, 2)), g.standard_normal((3, 2))
+    k = tk.Linear(2, variances=[0.4, 1.3], ARD=True, device="cpu")
+    kr = gk.Linear(2, variances=[0.4, 1.3], ARD=True)
+    q, qr = NormalPosterior(mu, S, device="cpu"), JNormalPosterior(mu, S)
+    for f, fr in ((k.psi0, kr.psi0), (k.psi1, kr.psi1), (k.psi2n, kr.psi2n)):
+        np.testing.assert_allclose(f(torch.tensor(Z), q).detach().numpy(),
+                                   np.asarray(fr(jnp.asarray(Z), qr)), rtol=1e-12)
 
 
 def test_sum_with_rbf_in_a_sparse_model():

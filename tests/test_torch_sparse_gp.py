@@ -135,15 +135,23 @@ def test_sparse_with_z_equal_x_matches_exact():
 
 
 def test_unported_options_raise():
-    """Uncertain inputs wait for ROADMAP A12: X_variance, and the qX branch
-    of VarDTC and VarDTC_minibatch."""
+    """Uncertain inputs are ported (A12): X_variance builds a model whose
+    bound is VarDTC's under the q(X), and VarDTC_minibatch's chunks under
+    it give VarDTC's bound (rel 1e-10). Only VarDTC takes uncertain inputs,
+    as in the reference; an unknown infer raises."""
+    from gpy_tpu_torch.kern.psi_comp import moments
+    from types import SimpleNamespace
+
     X, Y, _, _ = _data(20, 2, 1)
-    with pytest.raises(NotImplementedError, match="A12"):
-        SparseGPRegression(X, Y, X_variance=np.full_like(X, 0.1), device="cpu")
-    m = SparseGPRegression(X, Y, num_inducing=5, device="cpu")
-    for inf in (VarDTC(), VarDTC_minibatch(batchsize=7)):
-        with pytest.raises(NotImplementedError, match="A12"):
-            inf.inference(m.kern, m.X, m.Z.values, m.likelihood, m.Y, qX=object())
+    m = SparseGPRegression(X, Y, num_inducing=5, X_variance=np.full_like(X, 0.1), device="cpu")
+    q = moments(SimpleNamespace(mean=m.X, variance=torch.full_like(m.X, 0.1)))
+    lm = VarDTC().marginal_likelihood(m.kern, m.X, m.Z.values, m.likelihood, m.Y, qX=q)
+    np.testing.assert_allclose(m.log_likelihood().item(), lm.item(), rtol=1e-14)
+    lmb = VarDTC_minibatch(batchsize=7).marginal_likelihood(m.kern, m.X, m.Z.values,
+                                                           m.likelihood, m.Y, qX=q)
+    np.testing.assert_allclose(lmb.item(), lm.item(), rtol=1e-10)
+    with pytest.raises(ValueError, match="VarDTC"):
+        SparseGPRegression(X, Y, X_variance=np.full_like(X, 0.1), infer="fitc", device="cpu")
     with pytest.raises(ValueError, match="unknown infer"):
         SparseGPRegression(X, Y, infer="ep", device="cpu")
 
