@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. device  -- torch and CUDA versions, the card's name and power limit;
+  1. device  -- torch and CUDA versions, the card's name and power limit,
+                the host's CPU model and clock, and the host's dispatch
+                floor: us to enqueue one tiny operation, and one launch
+                with its read back;
   2. build   -- every csrc/*.cu compiled with nvcc (all at once), seconds;
   3. kernels -- each kernel against its plain torch version on the card,
                 forward and backward, float32 and float64;
@@ -212,6 +215,26 @@ Phases, each printing one JSON line:
                 fit(iters=200) steps/s in turns; infer_newX(variational=
                 False) for 16 new rows on GPLVM at bench.py's N=1000,
                 D=12, Q=10.
+ 31. state_space -- StateSpace at bench.py:764-777's Kalman stage, uncut
+                (N=20,000 sorted U(0, 100) times, y = sin(x/3) + 0.2 eps,
+                float32, the default Matern32(1), noise 0.1): one
+                NLML+gradient of the sequential engine (timed with repeats
+                at N=2,000 first) and of the chunked parallel one (best and
+                median of 3), each with the counters read around it (no
+                kernel of csrc/ on this path), profiled (device operations
+                and ms, idle share; the sequential engine at N=2,000), its
+                host syncs and a float64 twin; the speedup; parallel against
+                sequential in float64; predict at 2048 new points (22,048
+                merged steps) with the parallel engine; in float64 on 2048
+                points each engine's NLML and the latent predict at 256
+                against the dense GPRegression with Matern32; the
+                square-root filter's stress case (N=20,000, Matern52(l=1e4,
+                v=1e3) + Matern32, noise 1e-8: the plain filter's NLML in
+                float64 and float32, the stable one's in float32, within 15%
+                of float64); the C++ engine on the host in float64 against
+                the sequential filter; two rows through the batched
+                objective of the parallel StateSpace (N=2,000) and of
+                TPRegression (N=2048) against unbatched evaluation.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -256,6 +279,56 @@ def nvidia_smi_line() -> str:
                        capture_output=True, text=True, timeout=60)
     check(r.returncode == 0 and r.stdout.strip(), f"nvidia-smi failed: {r.stderr}")
     return r.stdout.strip().splitlines()[0]
+
+
+def host_record() -> dict:
+    """The host the card is driven from: its CPU model (lscpu, else
+    /proc/cpuinfo) and clock (/proc/cpuinfo) and its dispatch floor, as
+    bench.py's measure_dispatch_floor records it (bench.py:131): the
+    microseconds to enqueue one tiny operation, over 2000 of them, and the
+    best of 20 launches each read back. Host-bound paths vary with these."""
+    import platform
+
+    import torch
+
+    model, mhz = None, []
+    try:
+        r = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30)
+        for line in r.stdout.splitlines():
+            key, _, val = line.partition(":")
+            if key.strip() == "Model name":
+                model = val.strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                if key.strip() == "model name" and model is None:
+                    model = val.strip()
+                elif key.strip() == "cpu MHz":
+                    mhz.append(float(val))
+    except OSError:
+        pass
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1.0)
+    enqueue_us = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(20):
+        t0 = time.perf_counter()
+        x.add_(1.0)
+        x.item()
+        best = min(best, time.perf_counter() - t0)
+    return {"cpu": model, "machine": platform.machine(),
+            "cpu_mhz_mean": sum(mhz) / len(mhz) if mhz else None,
+            "cpu_count": os.cpu_count(), "enqueue_us_per_op": enqueue_us,
+            "launch_and_read_us": best * 1e6}
 
 
 def build_kernels(_build) -> dict:
@@ -3755,6 +3828,307 @@ def run_slice15(rg, smi):
             "rbf_gram_times": lv["rbf_gram_times"] + recs["tp"]["rbf_gram_times"]}
 
 
+# --- state space: the Kalman stage of bench.py:764-777 ----------------------
+
+# N=20,000 sorted U(0, 100) times, y = sin(x/3) + 0.2 eps, float32, the
+# default Matern32(1), noise 0.1; the sequential engine timed with repeats
+# at bench.py's SMOKE size first
+SS_N, SS_SMOKE_N, SS_PRED, SS_NOISE = 20_000, 2_000, 2048, 0.1
+# the sequential engine is profiled at N=500: its operations a step do not
+# depend on N, and at N=2,000 its profile held ~106,000 device events
+SS_PROFILE_SEQ_N = 500
+SS_DENSE_N, SS_DENSE_PRED = 2048, 256
+# the square-root filter's stress case (tests/test_state_space.py:260-282)
+SS_STRESS_N, SS_STRESS_NOISE, SS_STRESS_REL = 20_000, 1e-8, 0.15
+# float32 against a float64 twin at N=20,000 (NLML relative, gradient
+# max|diff| / max|ref|; ~10x the readings on an H100, both engines: NLML
+# 1.2e-4, the cancellation in Q = Pinf - A Pinf A' at dt/l ~ 0.005,
+# gradient 3.6e-6 and 6.5e-6), parallel against sequential in float64, the
+# Kalman NLML against the dense GP's in float64 (its inference adds 1e-8 to
+# the noise, which the Kalman model is given), the C++ engine against the
+# sequential filter, and rows through the batched objective against
+# unbatched evaluation (the same arithmetic)
+SS_F32_TOL = {"nlml": 1.2e-3, "grad": 6.5e-5}
+SS_EXACT_TOL = {"parallel_vs_sequential_f64": 1e-10, "dense_nlml": 1e-8,
+                "dense_predict_mean": 1e-8, "dense_predict_var": 1e-8,
+                "cpp_vs_scan_f64": 1e-10, "batched_rows": 1e-10}
+
+
+def ss_data(n, seed=0):
+    """bench.py:766-771's Kalman data at n points."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = np.sort(rng.uniform(0, 100, n)).astype(np.float32)
+    Y = (np.sin(X / 3.0) + 0.2 * rng.standard_normal(n)).astype(np.float32)
+    return X, Y
+
+
+def ss_model(X, Y, dtype, **kw):
+    from gpy_tpu_torch.models import StateSpace
+
+    return StateSpace(X, Y, noise_var=kw.pop("noise_var", SS_NOISE), device="cuda",
+                      dtype=dtype, **kw)
+
+
+def ss_evaluation(m, reps):
+    """One NLML+gradient with the counters set to 0 just before it and read
+    just after (no kernel of csrc/ is on this path), then `reps` more,
+    each timed: (objective, gradient, launches, ms of each)."""
+    import torch
+
+    x = m.optimizer_array
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f, g = m._objective_and_grad(x)
+    torch.cuda.synchronize()
+    times = [(time.perf_counter() - t0) * 1e3]
+    launches = counters()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m._objective_and_grad(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(v == 0 for v in launches.values()), f"state space: launches {launches}")
+    return f, g, launches, times
+
+
+def ss_engine(X, Y, Xs, parallel):
+    """One engine at N=20,000: NLML+gradient ms (the sequential engine once,
+    after two at N=2,000; the parallel one best and median of 3), the
+    profile (device operations and ms, idle share) and host syncs (the
+    sequential engine's at N=500 and N=2,000, where its loop is the same),
+    and a
+    float64 twin. Returns (record, (float64 objective, gradient, the raw
+    vector they were taken at))."""
+    import numpy as np
+    import torch
+
+    m = ss_model(X, Y, torch.float32, parallel=parallel)
+    rec = {"engine": "parallel" if parallel else "sequential"}
+    if parallel:
+        f, g, launches, times = ss_evaluation(m, 3)
+        prof = profile_objective(m, m.optimizer_array,
+                                 what=f"one objective_and_grad, parallel, N={SS_N} float32")
+        syncs = host_syncs(lambda: m._objective_and_grad(m.optimizer_array))
+        rec.update({"ms_best": min(times[1:]), "ms_median": sorted(times[1:])[1],
+                    "ms_first": times[0], "profile_n": SS_N})
+    else:
+        Xm, Ym = ss_data(SS_SMOKE_N)
+        small = ss_model(Xm, Ym, torch.float32)
+        _, _, _, t_small = ss_evaluation(small, 1)
+        syncs = host_syncs(lambda: small._objective_and_grad(small.optimizer_array))
+        Xp, Yp = ss_data(SS_PROFILE_SEQ_N)
+        tiny = ss_model(Xp, Yp, torch.float32)
+        prof = profile_objective(tiny, tiny.optimizer_array,
+                                 what=f"one objective_and_grad, sequential, "
+                                      f"N={SS_PROFILE_SEQ_N} float32")
+        del small, tiny
+        f, g, launches, times = ss_evaluation(m, 0)
+        rec.update({"ms_n2000": t_small[1:], "ms_n2000_first": t_small[0], "ms": times[0],
+                    "profile_n": SS_PROFILE_SEQ_N})
+    m64 = ss_model(X, Y, torch.float64, parallel=parallel)
+    t0 = time.perf_counter()
+    f64, g64 = m64._objective_and_grad(m.optimizer_array)
+    torch.cuda.synchronize()
+    ms64 = (time.perf_counter() - t0) * 1e3
+    nlml_rel, grad_rel = rel_errors(f, g, f64, g64)
+    check(all(math.isfinite(v) for v in (f, f64)) and np.isfinite(g).all()
+          and np.isfinite(g64).all(), f"state space {rec['engine']}: non-finite NLML or gradient")
+    rec.update({"nlml": f, "nlml_f64": f64, "nlml_rel_f32_vs_f64": nlml_rel,
+                "grad_rel_f32_vs_f64": grad_rel, "ms_f64": ms64, "launches": launches,
+                "device_ms": prof["device_ms"], "profile_wall_ms": prof["wall_ms"],
+                "device_ops": prof["device_ops"], "device_idle_share": prof["device_idle_share"],
+                "top": prof["top"][:6], "host_syncs_per_evaluation": len(syncs),
+                "host_sync_sites": sorted(set(syncs))})
+    if parallel:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mu, var = m.predict(Xs)
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        rec.update({"predict_n": len(Xs), "predict_steps": len(X) + len(Xs),
+                    "predict_ms": predict_ms,
+                    "predict_host_syncs": len(host_syncs(lambda: m.predict(Xs))),
+                    "predict_finite": bool(np.isfinite(mu).all() and (var > 0).all()),
+                    "predict_rmse_vs_sin": float(np.sqrt(np.mean(
+                        (mu[:, 0] - np.sin(Xs / 3.0)) ** 2)))})
+    x = m.optimizer_array
+    del m, m64
+    torch.cuda.empty_cache()
+    return rec, (f64, g64, x)
+
+
+def ss_dense_identity():
+    """In float64 on 2048 points of the Kalman data: each engine's NLML
+    against the dense GPRegression with Matern32 (the Kalman noise is the
+    dense inference's noise + 1e-8), and the parallel engine's latent
+    predict at 256 points against the dense one's."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import Matern32
+    from gpy_tpu_torch.models import GPRegression
+
+    X, Y = ss_data(SS_DENSE_N)
+    f64 = torch.float64
+    dense = GPRegression(X[:, None].astype(np.float64), Y[:, None].astype(np.float64),
+                         Matern32(1, device="cuda", dtype=f64), noise_var=SS_NOISE,
+                         device="cuda", dtype=f64)
+    with torch.no_grad():
+        d_ll = dense.log_likelihood().item()
+    Xs = np.sort(np.random.default_rng(1).uniform(0, 100, SS_DENSE_PRED))
+    mu_d, var_d = dense.predict(Xs[:, None], include_likelihood=False)
+    rec = {"N": SS_DENSE_N, "dtype": "float64", "dense_nlml": -d_ll}
+    for parallel in (False, True):
+        m = ss_model(X, Y, f64, parallel=parallel, noise_var=SS_NOISE + 1e-8)
+        with torch.no_grad():
+            ll = m.log_likelihood().item()
+        rec[f"nlml_rel_{'parallel' if parallel else 'sequential'}"] = abs(ll - d_ll) / abs(d_ll)
+        if parallel:
+            mu, var = m.predict(Xs, include_likelihood=False)
+            rec["predict_mean_max_abs"] = float(np.max(np.abs(mu - mu_d)))
+            rec["predict_var_max_abs"] = float(np.max(np.abs(var - var_d)))
+    del dense, m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ss_stress():
+    """tests/test_state_space.py:260-282 at N=20,000: Matern52(l=1e4, v=1e3)
+    + Matern32(l=1, v=0.5), noise 1e-8. The float64 NLML (by the parallel
+    engine, which gives the sequential one's in float64), the sequential
+    filter's in float32 and the square-root filter's in float32, each
+    forward only, timed."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import Matern32, Matern52
+
+    rg = np.random.default_rng(1)
+    X = np.sort(rg.uniform(0, 10.0, SS_STRESS_N))
+    Y = np.sin(2 * np.pi * X / 5.0) + 0.05 * rg.standard_normal(SS_STRESS_N)
+    rec = {"N": SS_STRESS_N, "noise": SS_STRESS_NOISE}
+    for tag, dtype, kw in (("plain_f64", torch.float64, dict(parallel=True)),
+                           ("plain_f32", torch.float32, {}),
+                           ("stable_f32", torch.float32, dict(stable=True))):
+        c = dict(device="cuda", dtype=dtype)
+        kern = Matern52(1, lengthscale=1e4, variance=1e3, **c) + Matern32(1, lengthscale=1.0,
+                                                                         variance=0.5, **c)
+        m = ss_model(X, Y, dtype, kernel=kern, noise_var=SS_STRESS_NOISE, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ll = m.log_likelihood().item()
+        rec[f"nlml_{tag}"] = -ll
+        rec[f"ms_{tag}"] = (time.perf_counter() - t0) * 1e3
+        del m
+    rec["plain_f32_finite"] = math.isfinite(rec["nlml_plain_f32"])
+    rec["stable_f32_rel_vs_f64"] = (abs(rec["nlml_stable_f32"] - rec["nlml_plain_f64"])
+                                    / abs(rec["nlml_plain_f64"]))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ss_batched_rows():
+    """Two rows through _batched_objective_and_grad, each against its
+    unbatched evaluation, float64: the parallel StateSpace at N=2,000 and
+    TPRegression at N=2048 (ROADMAP C(u)); TP's B1 launches counted."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.core.model import value_and_grad
+
+    X, Y = ss_data(SS_SMOKE_N)
+    rng = np.random.default_rng(0)
+    Xt = rng.random((TP_N, TP_D)) * 4.0
+    Yt = np.sin(Xt[:, :1]) + 0.1 * rng.standard_normal((TP_N, 1))
+    rec = {}
+    for name, m in (("state_space_parallel", ss_model(X, Y, torch.float64, parallel=True)),
+                    ("tp", tp_model(Xt, Yt, torch.float64))):
+        x0 = m.get_flat_raw()
+        rows = x0[None] + 0.05 * torch.as_tensor(rng.standard_normal((2, x0.numel())),
+                                                 dtype=x0.dtype, device=x0.device)
+        reset_counters()
+        v, g = m._batched_objective_and_grad(rows)
+        launches = counters()
+        err = 0.0
+        for c in range(2):
+            vc, gc = value_and_grad(m._flat_objective, rows[c])
+            err = max(err, abs(v[c].item() - vc.item()) / abs(vc.item()),
+                      (torch.max(torch.abs(g[c] - gc)) / torch.max(torch.abs(gc))).item())
+        rec[name] = {"rows": 2, "max_rel": err, "launches": launches}
+        del m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_state_space(smi):
+    """The state_space phase (bench.py:764-777 at N=20,000): both engines'
+    NLML+gradient, predict, the dense identity, the square-root filter's
+    stress case, the C++ engine and C(u)'s batched rows. Returns the B1
+    launches of the TP rows."""
+    import numpy as np
+    import torch
+
+    t_start = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    X, Y = ss_data(SS_N)
+    Xs = np.sort(np.random.default_rng(2).uniform(0, 100, SS_PRED)).astype(np.float32)
+    seq, (f64s, g64s, x) = timed("sequential", lambda: ss_engine(X, Y, Xs, parallel=False))
+    par, (f64p, g64p, _) = timed("parallel", lambda: ss_engine(X, Y, Xs, parallel=True))
+    par_vs_seq = max(abs(f64p - f64s) / abs(f64s),
+                     float(np.max(np.abs(g64p - g64s)) / np.max(np.abs(g64s))))
+    # the C++ engine on the host, float64, against the sequential filter's
+    # float64 NLML at the same parameters
+    mc = ss_model(X, Y, torch.float64, engine="cpp")
+    mc.set_flat_raw(x)
+    mc.log_likelihood()  # builds csrc/kalman.cpp with g++ at first use
+    t0 = time.perf_counter()
+    nlml_cpp = -mc.log_likelihood().item()
+    cpp = {"N": SS_N, "dtype": "float64", "host_seconds": time.perf_counter() - t0,
+           "nlml": nlml_cpp, "rel_vs_sequential_f64": abs(nlml_cpp - f64s) / abs(f64s)}
+    del mc
+    rec = {"phase": "state_space", "N": SS_N, "dtype": "float32", "kernel": "Matern32(1)",
+           "noise": SS_NOISE, "sequential": seq, "parallel": par,
+           "speedup_parallel_vs_sequential": seq["ms"] / par["ms_best"],
+           "parallel_vs_sequential_f64_rel": par_vs_seq,
+           "dense_identity": timed("dense_identity", ss_dense_identity),
+           "stress": timed("stress", ss_stress), "cpp": cpp,
+           "batched_rows": timed("batched_rows", ss_batched_rows), "nvidia_smi": smi}
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["part_seconds"] = parts
+    emit(rec)
+
+    for e in (seq, par):
+        for k, tol in SS_F32_TOL.items():
+            check(e[f"{k}_rel_f32_vs_f64"] <= tol, f"state space {e['engine']}: float32 vs "
+                  f"float64 {k} rel {e[f'{k}_rel_f32_vs_f64']} > {tol}")
+    check(par["predict_finite"], "state space: non-finite or non-positive predictions")
+    ex = rec["dense_identity"]
+    got = {"parallel_vs_sequential_f64": par_vs_seq,
+           "dense_nlml": max(ex["nlml_rel_sequential"], ex["nlml_rel_parallel"]),
+           "dense_predict_mean": ex["predict_mean_max_abs"],
+           "dense_predict_var": ex["predict_var_max_abs"],
+           "cpp_vs_scan_f64": cpp["rel_vs_sequential_f64"],
+           "batched_rows": max(r["max_rel"] for r in rec["batched_rows"].values())}
+    for k, tol in SS_EXACT_TOL.items():
+        check(got[k] <= tol, f"state space {k}: {got[k]} > {tol}")
+    st = rec["stress"]
+    check(math.isfinite(st["nlml_stable_f32"]) and st["stable_f32_rel_vs_f64"] < SS_STRESS_REL,
+          f"state space stress: the square-root filter read {st['nlml_stable_f32']} against "
+          f"float64's {st['nlml_plain_f64']}")
+    tp_rows = rec["batched_rows"]["tp"]["launches"]
+    check(tp_rows["rbf_gram"] == 2 * TP_B1 and rec["batched_rows"]["state_space_parallel"][
+        "launches"]["rbf_gram"] == 0, f"state space batched rows: launches {rec['batched_rows']}")
+    return {"launches_rbf_gram": tp_rows["rbf_gram"]}
+
+
 def run_svgp(rg, smi):
     """The flagship main path: SVGP.fit at bench.py's configuration, uncut.
     bench.py's warm-up (two fit(iters=100)) with the counters set to 0 just
@@ -3868,7 +4242,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-          "nvidia_smi": smi})
+          "host": host_record(), "nvidia_smi": smi})
 
     t0 = time.perf_counter()
     reports = build_kernels(_build)
@@ -3949,6 +4323,8 @@ def main() -> int:
     latent_rec = run_latent(rg, smi)
     # LVMOGP, the Student-t process, the optimizers and the GP surface
     s15_rec = run_slice15(rg, smi)
+    # state space (Kalman filters), bench.py's Kalman stage
+    ss_rec = run_state_space(smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -3963,7 +4339,8 @@ def main() -> int:
         + hmc_rec["launches"]["rbf_gram"] + svgp_rec["launches"]["rbf_gram"]
         + sparse_rec["launches"] + cls_rec["launches"] + multi_rec["launches_coreg"]
         + multi_rec["launches_multioutput"] + latent_rec["launches_gplvm"]
-        + latent_rec["launches_sparse_hmc"] + s15_rec["launches_rbf_gram"],
+        + latent_rec["launches_sparse_hmc"] + s15_rec["launches_rbf_gram"]
+        + ss_rec["launches_rbf_gram"],
         "launches_svgp": svgp_rec["launches"]["rbf_gram"],
         "launches_sparse": sparse_rec["launches"],
         "launches_classification": cls_rec["launches"],
@@ -3972,6 +4349,7 @@ def main() -> int:
         "launches_gplvm": latent_rec["launches_gplvm"],
         "launches_sparse_hmc": latent_rec["launches_sparse_hmc"],
         "launches_slice15": s15_rec["launches_rbf_gram"],
+        "launches_state_space": ss_rec["launches_rbf_gram"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
                            + sparse_rec["rbf_gram_checks"] + cls_rec["rbf_gram_checks"]
                            + multi_rec["rbf_gram_checks"] + latent_rec["rbf_gram_checks"]

@@ -136,7 +136,8 @@ class GP(Model):
         the inference's batched form once: one batched factorization per
         evaluation. With a mean function each row's Y - m(X) is stacked
         too. The rows of an inference without a batched form (no
-        `noisy_gram`: EP, Laplace) are evaluated one after the other."""
+        `noisy_gram`: EP, Laplace, the iterative inference) are evaluated
+        one after the other."""
         inf = self.inference_method
         if not hasattr(inf, "noisy_gram"):
             return torch.stack([self._flat_objective(row) for row in flats])

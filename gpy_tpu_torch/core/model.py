@@ -8,8 +8,9 @@ the gradient. scipy drives the host-side loop, as in GPy.
 
 The reference's `jax.vmap(jax.value_and_grad(_flat_objective))` over C raw
 vectors is `_batched_objective_and_grad`: each row is bound to the
-parameters in turn (Module.bind_flat_raw) and the model's batched form
-evaluates all C objectives with one batched factorization. It carries
+parameters in turn (Module.bind_flat_raw); a model with a batched form
+evaluates all C objectives with one batched factorization, any other
+evaluates its rows one after the other. It carries
 `optimize_restarts(parallel=True)` and the HMC chains (mcmc). torch.func
 .vmap cannot run it: the jitter ladder branches on the host and the kernels
 launch through ctypes.
@@ -133,9 +134,11 @@ class Model(Module):
 
     def _batched_objective(self, flats: torch.Tensor) -> torch.Tensor:
         """(C,) objectives at the rows of the (C, P) raw tensor `flats`, row
-        c differentiable with respect to row c only."""
-        raise NotImplementedError(
-            f"{type(self).__name__} has no batched objective yet (ROADMAP A10)")
+        c differentiable with respect to row c only. Here the rows are
+        evaluated one after the other through `_flat_objective`, which is
+        what the reference's vmap computes for any model; GP and SparseGP
+        stack their rows' factorizations instead."""
+        return torch.stack([self._flat_objective(row) for row in flats])
 
     def _batched_objective_and_grad(self, flats: torch.Tensor):
         """((C,) objectives, (C, P) gradient) at the rows of `flats`: the

@@ -170,7 +170,9 @@ class IterativeGaussianInference(LatentFunctionInference):
     fast_grad: "auto" computes the RBF gradient surrogate from the stored
       Gram (one extra sweep) when eligible; False always rebuilds.
 
-    It has no batched form: the reference reaches it unbatched only.
+    It has no stacked batched form: under HMC chains and parallel restarts
+    GP._batched_objective evaluates the rows one after the other, each on
+    the inference's one probe draw, as the reference's vmap does.
     """
 
     def __init__(self, max_cg=64, n_probes=8, block=2048, seed=0, materialize="auto",
@@ -190,11 +192,6 @@ class IterativeGaussianInference(LatentFunctionInference):
         self.fused = fused
         self.fused_accum = fused_accum
         self.fast_grad = fast_grad
-
-    def noisy_gram(self, kern, X, likelihood, Y_metadata=None):
-        raise NotImplementedError(
-            "IterativeGaussianInference has no batched form (HMC chains, parallel restarts) "
-            "yet: ROADMAP A13")
 
     # --- probes (one draw each, so a test can hand in other probes) --------
     def _generator(self, device):

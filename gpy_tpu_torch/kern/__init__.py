@@ -2,14 +2,35 @@
 from .coregionalize import Coregionalize, Hierarchical, IndependentOutputs
 from .kern import Add, CombinationKernel, Kern, Prod
 from .linear import Linear, LinearFull, TruncLinear, TruncLinear_inf
+from .misc import MLP, Brownian, Poly, Spline
 from .multioutput_kern import DiffKern, MultioutputDerivativeKern, MultioutputKern
+from .periodic import PeriodicExponential, PeriodicMatern32, PeriodicMatern52, StdPeriodic
 from .static import Bias, Fixed, Precomputed, Static, White, WhiteHeteroscedastic
 from .stationary import (OU, RBF, Cosine, Exponential, ExpQuad, ExpQuadCosine, Matern32,
                          Matern52, RatQuad, Sinc, Stationary)
+from . import sde  # noqa: E402,F401  (attaches sde() to RBF, RatQuad, StdPeriodic, ...)
+
+# The reference's sde_* names are the kernels themselves
+# (gpy_tpu/kern/__init__.py:39-53): every kernel with a state-space form
+# carries sde(), and White folds into the observation noise
+# (models/state_space.py).
+sde_Matern32 = Matern32
+sde_Matern52 = Matern52
+sde_Exponential = Exponential
+sde_RBF = RBF
+sde_RatQuad = RatQuad
+sde_StdPeriodic = StdPeriodic
+sde_Linear = Linear
+sde_White = White
+sde_Bias = Bias
+sde_Brownian = Brownian
 
 __all__ = ["Kern", "CombinationKernel", "Add", "Prod", "Stationary", "RBF", "ExpQuad",
            "Exponential", "OU", "Matern32", "Matern52", "Cosine", "ExpQuadCosine", "Sinc",
            "RatQuad", "Static", "White", "Bias", "Fixed", "WhiteHeteroscedastic", "Precomputed",
            "Linear", "LinearFull", "TruncLinear", "TruncLinear_inf", "Coregionalize",
            "IndependentOutputs", "Hierarchical", "MultioutputKern", "MultioutputDerivativeKern",
-           "DiffKern"]
+           "DiffKern", "StdPeriodic", "PeriodicExponential", "PeriodicMatern32",
+           "PeriodicMatern52", "MLP", "Poly", "Brownian", "Spline", "sde_Matern32",
+           "sde_Matern52", "sde_Exponential", "sde_RBF", "sde_RatQuad", "sde_StdPeriodic",
+           "sde_Linear", "sde_White", "sde_Bias", "sde_Brownian"]

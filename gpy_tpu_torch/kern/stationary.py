@@ -8,8 +8,9 @@ evaluate K_of_r(safe_sqrt(r2)) in torch ops (RatQuad its K on r2).
 differentiates by torch.func. Matern32, Matern52 and Exponential are also
 the families the fused Gram-matvec (ops/gram_matvec_fused.py) dispatches
 on. RBF has the closed-form psi statistics (kern/psi_comp.py), Gaussian or
-spike-and-slab by the type of q(X). The sde() forms wait for the
-state-space slice (ROADMAP A14).
+spike-and-slab by the type of q(X). Exponential, Matern32 and Matern52
+define their exact state-space forms, sde(), here; RBF's and RatQuad's
+approximate ones are attached by kern/sde.py.
 """
 from __future__ import annotations
 
@@ -134,6 +135,14 @@ class Exponential(Stationary):
     def K_of_r(self, r):
         return self.variance.values * torch.exp(-r)
 
+    def sde(self):
+        """Matern-1/2 state-space form (F, L, Qc, H, Pinf). GPy:
+        sde_matern.py."""
+        v = self.variance.values.reshape(1, 1)
+        ls = self.lengthscale.values.reshape(-1)[0]
+        one = torch.ones_like(v)
+        return -1.0 / ls * one, one, 2.0 * v / ls, one, v
+
 
 class OU(Exponential):
     """Ornstein-Uhlenbeck == Matern 1/2 (GPy: stationary.py:420)."""
@@ -154,6 +163,18 @@ class Matern32(Stationary):
         s3 = np.sqrt(3.0)
         return self.variance.values * (1.0 + s3 * r) * torch.exp(-s3 * r)
 
+    def sde(self):
+        """State-space form (F, L, Qc, H, Pinf), differentiable in the
+        hyperparameters. GPy: stationary.py:520-554."""
+        v = self.variance.values.reshape(())
+        ls = self.lengthscale.values.reshape(-1)[0]
+        lam = np.sqrt(3.0) / ls
+        z, o = torch.zeros_like(v), torch.ones_like(v)
+        F = torch.stack([torch.stack([z, o]), torch.stack([-(lam**2), -2 * lam])])
+        Qc = (12.0 * np.sqrt(3.0) * v / ls**3).reshape(1, 1)
+        Pinf = torch.stack([torch.stack([v, z]), torch.stack([z, 3.0 * v / ls**2])])
+        return F, torch.stack([z, o]).reshape(2, 1), Qc, torch.stack([o, z]).reshape(1, 2), Pinf
+
 
 class Matern52(Stationary):
     def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
@@ -164,6 +185,21 @@ class Matern52(Stationary):
     def K_of_r(self, r):
         s5 = np.sqrt(5.0)
         return self.variance.values * (1.0 + s5 * r + 5.0 / 3.0 * r**2) * torch.exp(-s5 * r)
+
+    def sde(self):
+        """State-space form (F, L, Qc, H, Pinf). GPy: stationary.py."""
+        v = self.variance.values.reshape(())
+        ls = self.lengthscale.values.reshape(-1)[0]
+        lam = np.sqrt(5.0) / ls
+        z, o = torch.zeros_like(v), torch.ones_like(v)
+        F = torch.stack([torch.stack([z, o, z]), torch.stack([z, z, o]),
+                         torch.stack([-(lam**3), -3 * lam**2, -3 * lam])])
+        Qc = (v * 400.0 * np.sqrt(5.0) / 3.0 / ls**5).reshape(1, 1)
+        kappa = 5.0 / 3.0 * v / ls**2
+        Pinf = torch.stack([torch.stack([v, z, -kappa]), torch.stack([z, kappa, z]),
+                            torch.stack([-kappa, z, 25.0 * v / ls**4])])
+        return (F, torch.stack([z, z, o]).reshape(3, 1), Qc,
+                torch.stack([o, z, z]).reshape(1, 3), Pinf)
 
 
 class Cosine(Stationary):

@@ -13,6 +13,7 @@ from .sparse_gp_classification import (SparseGPClassification,
 from .sparse_gp_minibatch import BayesianGPLVMMiniBatch, SparseGPMiniBatch
 from .sparse_gp_regression import SparseGPRegression, SparseGPRegressionMD
 from .ss_gplvm import SSGPLVM, SSMRD
+from .state_space import StateSpace
 from .tp_regression import TPRegression
 
 __all__ = ["GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression",
@@ -23,4 +24,4 @@ __all__ = ["GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression",
            "MultioutputGP", "SparseGPClassificationUncertainInput", "GPLVM", "SparseGPLVM",
            "BayesianGPLVM", "BayesianGPLVMMiniBatch", "SparseGPMiniBatch", "MRD", "SSGPLVM",
            "SSMRD", "BCGPLVM", "DPBayesianGPLVM", "GPMultioutRegression",
-           "GPMultioutRegressionMD", "TPRegression"]
+           "GPMultioutRegressionMD", "TPRegression", "StateSpace"]

@@ -1,9 +1,11 @@
-"""Builds the CUDA sources under gpy_tpu_torch/csrc/ at first use.
+"""Builds the sources under gpy_tpu_torch/csrc/ at first use.
 
-Each source compiles with nvcc into a shared library with a plain C
-interface in gpy_tpu_torch/_build/, which ctypes loads. Nothing is built on
-import: only a wrapper that launches a kernel calls `load`. A library older
-than its source is rebuilt.
+Each CUDA source (`.cu`) compiles with nvcc, each host source (`.cpp`, the
+state-space model's C++ engine) with g++, into a shared library with a
+plain C interface in gpy_tpu_torch/_build/, which ctypes loads. Nothing is
+built on import: only a wrapper that launches a kernel, or runs the host
+engine, calls `load`. A library older than its source is rebuilt; a missing
+compiler or a failed build raises.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -40,27 +43,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the C++ state-space engine needs a C++ compiler")
+    return found
+
+
 def _paths(name: str):
-    return os.path.join(CSRC_DIR, name + ".cu"), os.path.join(BUILD_DIR, f"lib{name}.so")
+    """(source, library): csrc/<name>.cu, else csrc/<name>.cpp."""
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    if not os.path.exists(src):
+        src = os.path.join(CSRC_DIR, name + ".cpp")
+    return src, os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu into _build/lib<name>.so and return nvcc's
-    report (with -Xptxas -v: registers, shared memory and spills per kernel)."""
+    """Compile csrc/<name>.cu (nvcc) or csrc/<name>.cpp (g++) into
+    _build/lib<name>.so and return the compiler's report (nvcc's with
+    -Xptxas -v: registers, shared memory and spills per kernel)."""
     src, so = _paths(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                       capture_output=True, text=True)
+    cmd = ([_nvcc(), *NVCC_FLAGS] if src.endswith(".cu") else [_gxx(), *GXX_FLAGS])
+    r = subprocess.run([*cmd, "-o", tmp, src], capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed on {src}:\n{r.stdout}{r.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees the old or the new file
     return r.stdout + r.stderr
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it when it is missing
-    or older than its source."""
+    """The loaded library for csrc/<name>.cu or .cpp, building it when it is
+    missing or older than its source."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -39,6 +39,8 @@ __all__ = [
     "cholesky_or_nan",
     "solve_lu_safe",
     "slogdet_lu_safe",
+    "expm_safe",
+    "block_diag",
 ]
 
 
@@ -277,6 +279,20 @@ def solve_lu_safe(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float64 to float32 there on a TPU (`_lu_dtype`), whose float64 LU fails
     to compile; the card has a float64 LU, so nothing is cast."""
     return torch.linalg.solve(A, b)
+
+
+def expm_safe(M: torch.Tensor) -> torch.Tensor:
+    """The matrix exponential of M (batched over leading dimensions),
+    gpy_tpu/util/linalg.py:91-97, by torch.linalg.matrix_exp, which
+    differentiates. The reference casts float64 to float32 on a TPU, where
+    the Pade denominator's float64 LU fails to compile; the card and the
+    CPU have a float64 LU, so nothing is cast."""
+    return torch.linalg.matrix_exp(M)
+
+
+def block_diag(*mats: torch.Tensor) -> torch.Tensor:
+    """jax.scipy.linalg.block_diag of 2-D tensors (torch.block_diag)."""
+    return torch.block_diag(*mats)
 
 
 def slogdet_lu_safe(A: torch.Tensor):

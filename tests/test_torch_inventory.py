@@ -29,7 +29,10 @@ SURFACES = {
         "ExpQuadCosine", "Sinc", "RatQuad", "Linear", "LinearFull", "TruncLinear",
         "TruncLinear_inf", "Bias", "White", "Fixed", "WhiteHeteroscedastic", "Precomputed",
         "Add", "Prod", "Coregionalize", "IndependentOutputs", "Hierarchical", "MultioutputKern",
-        "MultioutputDerivativeKern", "DiffKern"}),
+        "MultioutputDerivativeKern", "DiffKern", "StdPeriodic", "PeriodicExponential",
+        "PeriodicMatern32", "PeriodicMatern52", "MLP", "Poly", "Brownian", "Spline",
+        "sde_Matern32", "sde_Matern52", "sde_Exponential", "sde_RBF", "sde_RatQuad",
+        "sde_StdPeriodic", "sde_Linear", "sde_White", "sde_Bias", "sde_Brownian"}),
     "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {
         "Gaussian", "HeteroscedasticGaussian", "Bernoulli", "Binomial", "Poisson", "Exponential",
         "Gamma", "StudentT", "Weibull", "LogLogistic", "LogGaussian", "MixedNoise",
@@ -44,7 +47,8 @@ SURFACES = {
         "SparseGPCoregionalizedRegression", "GPOffsetRegression", "MultioutputGP",
         "SparseGPClassificationUncertainInput", "GPLVM", "SparseGPLVM", "BayesianGPLVM",
         "BayesianGPLVMMiniBatch", "SparseGPMiniBatch", "MRD", "SSGPLVM", "SSMRD", "BCGPLVM",
-        "DPBayesianGPLVM", "GPMultioutRegression", "GPMultioutRegressionMD", "TPRegression"}),
+        "DPBayesianGPLVM", "GPMultioutRegression", "GPMultioutRegressionMD", "TPRegression",
+        "StateSpace"}),
     "GPY_INFERENCE": ("gpy_tpu_torch.inference", {
         "ExactGaussianInference", "VarDTC", "VarDTC_minibatch", "VarDTCMissingData", "FITC",
         "DTC", "PEP", "SVGPInference", "Laplace", "LaplaceBlock", "EP", "EPDTC",

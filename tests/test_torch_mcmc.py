@@ -17,7 +17,6 @@ import torch
 import gpy_tpu
 import gpy_tpu.mcmc as jmcmc
 from gpy_tpu.models import GPRegression as JGPRegression
-import gpy_tpu_torch
 from gpy_tpu_torch import mcmc
 from gpy_tpu_torch.core import priors
 from gpy_tpu_torch.core.model import value_and_grad
@@ -270,16 +269,92 @@ def test_sequential_restarts_match_reference():
                                rtol=1e-6, atol=1e-6)
 
 
+def _against_rows(m, rows):
+    """The batched objective and gradient against each row's unbatched
+    evaluation (rel 1e-10: the same arithmetic); the parameters are left as
+    they were."""
+    x_before = m.get_flat_raw().clone()
+    v, g = m._batched_objective_and_grad(rows)
+    assert v.shape == (rows.shape[0],) and g.shape == rows.shape
+    for c in range(rows.shape[0]):
+        vc, gc = value_and_grad(m._flat_objective, rows[c])
+        np.testing.assert_allclose(v[c].item(), vc.item(), rtol=1e-10)
+        np.testing.assert_allclose(g[c].numpy(), gc.numpy(), rtol=1e-8,
+                                   atol=1e-10 * gc.abs().max().item())
+    assert torch.equal(m.get_flat_raw(), x_before)
+
+
+def _chains_and_restarts_run(m):
+    s = mcmc.HMC(m, stepsize=0.01, num_leapfrog=2).sample(num_samples=2, num_chains=2)
+    assert s.shape == (2, 2, m.num_free_params) and np.isfinite(s).all()
+    rs = m.optimize_restarts(parallel=True, num_restarts=2, max_iters=3, seed=0, verbose=False)
+    assert len(rs) == 2 and all(np.isfinite(r.f_opt) for r in rs)
+
+
+def _hand_jax_probes(inf, n):
+    """gpy_tpu's Rademacher probes (inference/iterative.py:379-380) into the
+    port: torch and JAX draw different numbers from one seed."""
+    Z = np.asarray(jax.random.rademacher(jax.random.PRNGKey(inf.seed), (n, inf.n_probes),
+                                         dtype=jnp.float64))
+    inf._rademacher = lambda N, dtype, device: torch.tensor(Z, dtype=dtype, device=device)
+
+
 def test_batched_objective_needs_a_batched_inference():
+    """It no longer does: an inference without a stacked batched form, the
+    iterative one here, has its rows evaluated one after the other, each on
+    the inference's one probe draw, as the reference's vmap computes them.
+    The rows equal the unbatched evaluations and, with gpy_tpu's probes
+    handed in, jax.vmap(jax.value_and_grad) of the reference's objective
+    (rel 1e-9); two HMC chains and two parallel restarts run."""
+    from gpy_tpu.inference.iterative import IterativeGaussianInference as JIterative
+
     X, Y = _data(30)
-    m = GPRegression(X, Y, RBF(2, device="cpu"), device="cpu",
-                     inference_method=IterativeGaussianInference(max_cg=4, n_probes=2))
-    with pytest.raises(NotImplementedError, match="A13"):
-        m._batched_objective_and_grad(m.get_flat_raw()[None].repeat(2, 1))
-    with pytest.raises(NotImplementedError, match="A13"):
-        mcmc.HMC(m, num_leapfrog=1).sample(num_samples=1, num_chains=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        gpy_tpu_torch.Model()._batched_objective(torch.zeros(2, 0))
+    opts = dict(max_cg=30, n_probes=2, seed=0)
+    inf = IterativeGaussianInference(**opts)
+    _hand_jax_probes(inf, 30)
+    m = GPRegression(X, Y, RBF(2, device="cpu"), noise_var=0.1, device="cpu",
+                     inference_method=inf)
+    jm = JGPRegression(X, Y, noise_var=0.1, inference_method=JIterative(**opts))
+    rows = torch.as_tensor(_rows(m, 3, seed=2, scale=0.1))
+    _against_rows(m, rows)
+    vr, gr = jax.vmap(jax.value_and_grad(jm._flat_objective))(jnp.asarray(rows.numpy()))
+    v, g = m._batched_objective_and_grad(rows)
+    np.testing.assert_allclose(v.numpy(), np.asarray(vr), rtol=1e-9)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gr), rtol=1e-7,
+                               atol=1e-9 * np.abs(np.asarray(gr)).max())
+    _chains_and_restarts_run(m)
+
+
+def _rowwise(name):
+    from gpy_tpu_torch.kern import Matern32
+    from gpy_tpu_torch.models import GPMultioutRegression, GPMultioutRegressionMD, StateSpace
+    from gpy_tpu_torch.models import TPRegression
+
+    X, Y = _data(20)
+    if name == "tp":
+        return TPRegression(X, Y, deg_free=4.0, device="cpu")
+    if name == "state_space":
+        return StateSpace(X[:, 0], Y, kernel=Matern32(1, device="cpu"), noise_var=0.1,
+                          parallel=True, device="cpu")
+    Ym = np.sin(X[:, :1] + np.arange(3)[None, :])
+    np.random.seed(0)
+    if name == "lvmogp":
+        return GPMultioutRegression(X, Ym, 2, num_inducing=(6, 3), init="rand", device="cpu")
+    idx = np.repeat(np.arange(3), 20)
+    return GPMultioutRegressionMD(np.tile(X, (3, 1)), Ym.T.reshape(-1, 1), idx, 2,
+                                  num_inducing=(6, 3), init="rand", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["tp", "lvmogp", "lvmogp_md", "state_space"])
+def test_models_on_the_base_batched_objective_evaluate_rows_in_turn(name):
+    """TPRegression, GPMultioutRegression(MD) and StateSpace have no stacked
+    bound: Model._batched_objective evaluates their rows one after the
+    other (the reference vmaps _flat_objective over any model), equal to
+    the unbatched evaluations; two HMC chains and two parallel restarts
+    run on each."""
+    m = _rowwise(name)
+    _against_rows(m, torch.as_tensor(_rows(m, 2, seed=3, scale=0.05)))
+    _chains_and_restarts_run(m)
 
 
 def test_bind_flat_raw_ties_and_restores():
