@@ -235,6 +235,24 @@ Phases, each printing one JSON line:
                 the sequential filter; two rows through the batched
                 objective of the parallel StateSpace (N=2,000) and of
                 TPRegression (N=2048) against unbatched evaluation.
+ 32. longtail -- bench.py:784-813's long-tail stage, uncut, float32 with a
+                float64 twin: GPKroneckerGaussianRegression on the 32 x 24
+                grid (2 B1 launches an NLML+gradient) and GPRegressionGrid
+                on 16 x 12 x 10 (3), each with one NLML+gradient as above,
+                best and median of 3, predict over a new grid, and in
+                float64 the NLML, gradient and latent predict against the
+                dense GPRegression on the product kernel (ROADMAP C(w));
+                WarpedGP (TanhFunction(3)) and InputWarpedGP at N=1000,
+                D=2 (1): one NLML+gradient, predict (the Gauss-Hermite mean,
+                the median, predict_quantiles) at 1000 points, two batched
+                rows against unbatched evaluation in float64;
+                GPVariationalGaussianApproximation on the banana set
+                (N=2048, Bernoulli; 1): one ELBO+gradient, optimize(
+                max_iters=50) in float64 (the objective must fall;
+                held-out accuracy recorded); each long-tail kernel in a
+                GPRegression at N=1000: one NLML+gradient against float64
+                (4 B1 launches for Symmetric, SplitKern and DEtime over an
+                RBF, 1 for GridRBF).
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -4129,6 +4147,429 @@ def run_state_space(smi):
     return {"launches_rbf_gram": tp_rows["rbf_gram"]}
 
 
+# --- the long tail: bench.py:784-813 ----------------------------------------
+
+# bench.py:793-800: GPKroneckerGaussianRegression on a 32 x 24 grid (X1 =
+# linspace(0, 3), X2 = linspace(0, 2), RBF(1) x 2, noise 0.05), predicted
+# over a 64 x 48 grid; :802-807: GPRegressionGrid on 16 x 12 x 10 axes on
+# linspace(0, 3), Y ~ N(0, 1), noise 0.5, predicted over 20 x 15 x 12;
+# :809-813: WarpedGP at N=1000, D=2, the default TanhFunction(3), with
+# InputWarpedGP on the same data; GPVariationalGaussianApproximation on
+# the banana set (BASELINE config 3's data, N=2048, RBF(2), Bernoulli)
+LT_KRON, LT_KRON_NOISE, LT_KRON_PRED = (32, 24), 0.05, (64, 48)
+LT_GRID, LT_GRID_NOISE, LT_GRID_PRED = (16, 12, 10), 0.5, (20, 15, 12)
+LT_WARP_N, LT_WARP_D = 1000, 2
+LT_VG_N, LT_VG_ITERS = 2048, 50
+LT_KERN_N = 1000
+LT_DENSE_JITTER = 1e-8  # exact inference adds it to the noise (inference/exact.py)
+# B1 launches an NLML+gradient: one K per RBF axis; one K for the warped GPs
+# and VarGauss; four for Symmetric(RBF), SplitKern(RBF) and DEtime (the
+# square Gram and the three crosses), one for GridRBF, none for the others
+LT_B1 = {"kronecker": 2, "grid": 3, "warped": 1, "input_warped": 1, "var_gauss": 1}
+LT_KERN_B1 = {"Symmetric-even": 4, "Symmetric-odd": 4, "SplitKern": 4, "DEtime": 4,
+              "GridRBF": 1}
+# float32 against a float64 twin at the start, rel NLML / max-relative
+# gradient: ~10x the readings on an H100 (Kronecker 1.8e-6 / 1.9e-6, grid
+# 3.8e-7 / 2.0e-6, WarpedGP 4.1e-8 / 5.4e-7, InputWarpedGP 2.7e-8 /
+# 3.3e-7, VarGauss 8.4e-7 / 2.9e-7; the kernel models 7e-9-2.8e-3 /
+# 2.6e-6-3.9e-3, the basis-function and Symmetric models' K ill-conditioned
+# at N=1000: cond 6e3-6e5 with the noise 0.1)
+LT_F32_TOL = {"kronecker": {"nlml": 2e-5, "grad": 2e-5}, "grid": {"nlml": 4e-6, "grad": 2e-5},
+              "warped": {"nlml": 5e-7, "grad": 6e-6},
+              "input_warped": {"nlml": 3e-7, "grad": 4e-6},
+              "var_gauss": {"nlml": 9e-6, "grad": 3e-6}}
+LT_KERN_F32_TOL = {
+    "PolynomialBasisFuncKernel": (2.8e-2, 2e-2), "LinearSlopeBasisFuncKernel": (2.4e-3, 5.8e-3),
+    "ChangePointBasisFuncKernel": (6.3e-4, 1.5e-3), "DomainKernel": (5.5e-4, 2.2e-3),
+    "LogisticBasisFuncKernel": (4e-5, 1.7e-4), "Integral": (4.4e-6, 3.9e-5),
+    "Integral_Limits": (1.3e-6, 3.3e-5), "Multidimensional_Integral_Limits": (7e-8, 3.6e-5),
+    "Symmetric-even": (3.7e-3, 4e-2), "Symmetric-odd": (5.8e-4, 1.5e-3),
+    "SplitKern": (4.4e-6, 8.7e-5), "DEtime": (1.2e-6, 5.8e-5), "GridRBF": (8.8e-6, 2.6e-5)}
+# float64 on the card: the grid models against the dense GP on the product
+# kernel (ROADMAP C(w): NLML, gradient, latent predict), and batched rows
+# against unbatched evaluation (the same arithmetic)
+LT_EXACT_TOL = {"dense_nlml": 1e-10, "dense_grad": 1e-8, "dense_predict": 1e-8,
+                "batched_rows": 1e-10}
+
+
+def lt_best_median(fn, reps=3):
+    """Best and median ms of `reps` calls, each after a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[0], times[len(times) // 2]
+
+
+def lt_evaluation(m, m64_fn, what):
+    """one_evaluation with the host syncs and the best and median of 3
+    timed NLML+gradients."""
+    rec, m64 = one_evaluation(m, m64_fn, what)
+    with_host_syncs(rec, m)
+    x = m.optimizer_array
+    rec["ms_best"], rec["ms_median"] = lt_best_median(lambda: m._objective_and_grad(x))
+    return rec, m64
+
+
+def lt_kron_data():
+    """bench.py:793-797, float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n1, n2 = LT_KRON
+    X1 = np.linspace(0, 3, n1).reshape(-1, 1).astype(np.float32)
+    X2 = np.linspace(0, 2, n2).reshape(-1, 1).astype(np.float32)
+    Y = (np.sin(X1) @ np.cos(X2).T + 0.05 * rng.standard_normal((n1, n2))).astype(np.float32)
+    return [X1, X2], Y
+
+
+def lt_grid_data():
+    """bench.py:802-806, float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    Xs = [np.linspace(0, 3, n).reshape(-1, 1).astype(np.float32) for n in LT_GRID]
+    return Xs, rng.standard_normal(LT_GRID).astype(np.float32)
+
+
+def lt_grid_model(kind, axes, Y, dtype, noise):
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.models import GPKroneckerGaussianRegression, GPRegressionGrid
+
+    c = dict(device="cuda", dtype=dtype)
+    if kind == "kronecker":
+        return GPKroneckerGaussianRegression(axes[0], axes[1], Y, RBF(1, **c), RBF(1, **c),
+                                             noise_var=noise, **c)
+    return GPRegressionGrid(axes, Y, noise_var=noise, **c)
+
+
+def lt_dense(axes, Y, noise):
+    """The dense GPRegression on the product of one RBF(1) per axis over
+    every grid point, float64, with the noise less the jitter exact
+    inference adds; and the points."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.models import GPRegression
+
+    c = dict(device="cuda", dtype=torch.float64)
+    pts = np.stack(np.meshgrid(*[a[:, 0] for a in axes], indexing="ij"), -1).reshape(
+        -1, len(axes)).astype(np.float64)
+    k = RBF(1, active_dims=[0], **c)
+    for d in range(1, len(axes)):
+        k = k * RBF(1, active_dims=[d], **c)
+    return GPRegression(pts, np.asarray(Y, dtype=np.float64).reshape(-1, 1), k,
+                        noise_var=noise - LT_DENSE_JITTER, **c)
+
+
+def lt_grid_vs_dense(kind, axes, Y, noise, pred_axes):
+    """ROADMAP C(w) on the card, float64: the grid model's NLML and gradient
+    against the dense GP's (the kernel gradients by raw parameter, the
+    noise's with respect to its value), and its predict over a new grid
+    against the dense model's latent predict plus the noise."""
+    import numpy as np
+    import torch
+
+    m = lt_grid_model(kind, axes, Y, torch.float64, noise)
+    md = lt_dense(axes, Y, noise)
+    f, g = m._objective_and_grad(m.optimizer_array)
+    fd, gd = md._objective_and_grad(md.optimizer_array)
+
+    def sig(mod, path):
+        return torch.sigmoid(mod.get_raw_dict()[path]).item()
+
+    got = np.append(g[1:], g[0] / sig(m, "noise_var"))
+    ref = np.append(gd[:-1], gd[-1] / sig(md, "likelihood.variance"))
+    mu, var = m.predict(*pred_axes) if kind == "kronecker" else m.predict(pred_axes)
+    pts = np.stack(np.meshgrid(*[a[:, 0] for a in pred_axes], indexing="ij"), -1).reshape(
+        -1, len(pred_axes))
+    mud, vard = md.predict(pts, include_likelihood=False)
+    vard = vard + noise
+    out = {"points": int(np.prod(Y.shape)), "nlml_rel": abs(f - fd) / abs(fd),
+           "grad_rel": float(np.max(np.abs(got - ref)) / np.max(np.abs(ref))),
+           "predict_points": int(pts.shape[0]),
+           "predict_rel": max(float(np.max(np.abs(mu.reshape(-1) - mud[:, 0]))
+                                    / np.max(np.abs(mud))),
+                              float(np.max(np.abs(var.reshape(-1) - vard[:, 0]))
+                                    / np.max(np.abs(vard)))),
+           "grad": got.tolist(), "grad_dense": ref.tolist()}
+    del m, md
+    torch.cuda.empty_cache()
+    return out
+
+
+def lt_grid_phase(kind):
+    """One grid model at bench.py's shape: one NLML+gradient with the
+    counters, best and median of 3, the profile, host syncs and a float64
+    twin; predict over the new grid (ms, float32 against float64); the
+    float64 identity with the dense GP."""
+    import numpy as np
+    import torch
+
+    axes, Y = lt_kron_data() if kind == "kronecker" else lt_grid_data()
+    noise = LT_KRON_NOISE if kind == "kronecker" else LT_GRID_NOISE
+    sizes = LT_KRON_PRED if kind == "kronecker" else LT_GRID_PRED
+    pred_axes = [np.linspace(0, 3 if d == 0 or kind == "grid" else 2, n).reshape(-1, 1).astype(
+        np.float32) for d, n in enumerate(sizes)]
+    m = lt_grid_model(kind, axes, Y, torch.float32, noise)
+    rec, m64 = lt_evaluation(m, lambda: lt_grid_model(kind, axes, Y, torch.float64, noise),
+                             f"{kind} {'x'.join(map(str, Y.shape))} float32")
+
+    def pred(mm):
+        return mm.predict(*pred_axes) if kind == "kronecker" else mm.predict(pred_axes)
+
+    mu, var = pred(m)
+    mu64, var64 = pred(m64)
+    rec.update({"shape": list(Y.shape), "noise": noise, "predict_grid": list(sizes),
+                "predict_ms": host_ms(lambda: pred(m), reps=5, warmup=1),
+                "predict_finite": bool(np.isfinite(mu).all() and (var > 0).all()),
+                "predict_mean_rel_f32_vs_f64": float(np.max(np.abs(mu - mu64))
+                                                     / np.max(np.abs(mu64))),
+                "predict_var_rel_f32_vs_f64": float(np.max(np.abs(var - var64))
+                                                    / np.max(np.abs(var64)))})
+    del m, m64
+    torch.cuda.empty_cache()
+    rec["dense_f64"] = lt_grid_vs_dense(kind, axes, Y, noise, pred_axes)
+    return rec
+
+
+def lt_batched_rows(m):
+    """Two rows through _batched_objective_and_grad against unbatched
+    evaluation (float64): max relative error and the launches of the
+    batched call."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.core.model import value_and_grad
+
+    x0 = m.get_flat_raw()
+    rows = x0[None] + 0.05 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal((2, x0.numel())), dtype=x0.dtype,
+        device=x0.device)
+    reset_counters()
+    v, g = m._batched_objective_and_grad(rows)
+    launches = counters()
+    err = 0.0
+    for c in range(2):
+        vc, gc = value_and_grad(m._flat_objective, rows[c])
+        err = max(err, abs(v[c].item() - vc.item()) / abs(vc.item()),
+                  (torch.max(torch.abs(g[c] - gc)) / torch.max(torch.abs(gc))).item())
+    return {"rows": 2, "max_rel": err, "launches": launches}
+
+
+def lt_warped_phase(kind):
+    """WarpedGP or InputWarpedGP at bench.py:809-813's data: one
+    NLML+gradient as lt_evaluation; predict at 1000 new points (WarpedGP:
+    the Gauss-Hermite mean, the median and predict_quantiles), ms; two
+    batched rows against unbatched evaluation in float64."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.models import InputWarpedGP, WarpedGP
+
+    rng = np.random.default_rng(0)
+    X = (rng.random((LT_WARP_N, LT_WARP_D)) * 4.0).astype(np.float32)
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((LT_WARP_N, 1))).astype(np.float32)
+    Xs = (rng.random((LT_WARP_N, LT_WARP_D)) * 4.0).astype(np.float32)
+    cls = WarpedGP if kind == "warped" else InputWarpedGP
+
+    def make(dtype):
+        return cls(X, Y, device="cuda", dtype=dtype)
+
+    m = make(torch.float32)
+    rec, m64 = lt_evaluation(m, lambda: make(torch.float64), f"{kind}, N={LT_WARP_N} float32")
+    mu, var = m.predict(Xs)
+    mu64, _ = m64.predict(Xs)
+    rec.update({"predict_ms": host_ms(lambda: m.predict(Xs), reps=3, warmup=1),
+                "predict_mean_rel_f32_vs_f64": float(np.max(np.abs(mu - mu64))
+                                                     / np.max(np.abs(mu64))),
+                "pred_rmse_vs_sin": float(np.sqrt(np.mean((mu - np.sin(Xs[:, :1])) ** 2)))})
+    finite = [mu, var]
+    if kind == "warped":
+        med = m.predict(Xs, median=True)
+        q = m.predict_quantiles(Xs)
+        finite += list(med) + list(q)
+        rec.update({"predict_median_ms": host_ms(lambda: m.predict(Xs, median=True), reps=3,
+                                                 warmup=1),
+                    "predict_quantiles_ms": host_ms(lambda: m.predict_quantiles(Xs), reps=3,
+                                                    warmup=1),
+                    "quantiles_ordered": bool(np.all(q[0] <= q[1]))})
+    rec["predict_finite"] = bool(all(np.isfinite(a).all() for a in finite) and (var > 0).all())
+    rec["batched_rows_f64"] = lt_batched_rows(m64)
+    del m, m64
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lt_var_gauss_phase():
+    """GPVariationalGaussianApproximation on the banana set: one
+    ELBO+gradient as lt_evaluation; optimize(max_iters=50) in float64 from
+    the default start (seconds, evaluations, launches, the objective before
+    and after, held-out accuracy on a second draw)."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.likelihoods import Bernoulli
+    from gpy_tpu_torch.models import GPVariationalGaussianApproximation
+
+    X, Y = banana(np.random.default_rng(0), LT_VG_N)
+    Xte, Yte = banana(np.random.default_rng(1), LT_VG_N)
+
+    def make(dtype):
+        c = dict(device="cuda", dtype=dtype)
+        return GPVariationalGaussianApproximation(X, Y, RBF(2, **c), Bernoulli(**c), **c)
+
+    m = make(torch.float32)
+    rec, m64 = lt_evaluation(m, lambda: make(torch.float64), f"var_gauss, N={LT_VG_N} float32")
+    del m
+    f0 = m64._objective_and_grad(m64.optimizer_array)[0]
+    p0, _ = m64.predict(Xte)
+    res, evals, secs, launches = timed_optimize(m64, LT_VG_ITERS)
+    f1 = m64._objective_and_grad(m64.optimizer_array)[0]
+    p1, _ = m64.predict(Xte)
+    rec["optimize_f64"] = {
+        "max_iters": LT_VG_ITERS, "seconds": secs, "evaluations": evals,
+        "rbf_gram_launches": launches["rbf_gram"], "objective_start": f0, "objective_end": f1,
+        "scipy_message": res.status,
+        "heldout_accuracy_start": float(np.mean((p0 > 0.5) == (Yte > 0.5))),
+        "heldout_accuracy_end": float(np.mean((p1 > 0.5) == (Yte > 0.5)))}
+    del m64
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lt_kernel_models(dtype):
+    """(name, GPRegression) for each long-tail kernel at N=1000 on 1-D
+    inputs: [t, s] = [x + 0.1, x] bins for Integral_Limits, two such pairs
+    for Multidimensional_Integral_Limits, [x, domain index] for SplitKern
+    and DEtime."""
+    import numpy as np
+    import gpy_tpu_torch.kern as tk
+    from gpy_tpu_torch.models import GPRegression
+
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.random((LT_KERN_N, 1)) * 4.0, axis=0)
+    x2 = rng.random((LT_KERN_N, 1)) * 4.0
+    Y = np.sin(x) + 0.1 * rng.standard_normal((LT_KERN_N, 1))
+    idx = (rng.random((LT_KERN_N, 1)) < 0.5).astype(np.float64)
+    c = dict(device="cuda", dtype=dtype)
+    bins = np.hstack([x + 0.1, x])
+    cases = [
+        ("PolynomialBasisFuncKernel", tk.PolynomialBasisFuncKernel(1, 2, **c), x),
+        ("LinearSlopeBasisFuncKernel", tk.LinearSlopeBasisFuncKernel(1, 1.0, 3.0, **c), x),
+        ("ChangePointBasisFuncKernel", tk.ChangePointBasisFuncKernel(1, 2.0, **c), x),
+        ("DomainKernel", tk.DomainKernel(1, 1.0, 3.0, **c), x),
+        ("LogisticBasisFuncKernel", tk.LogisticBasisFuncKernel(1, [2.0], **c), x),
+        ("Integral", tk.Integral(1, **c), x),
+        ("Integral_Limits", tk.Integral_Limits(2, **c), bins),
+        ("Multidimensional_Integral_Limits", tk.Multidimensional_Integral_Limits(4, **c),
+         np.hstack([bins, x2 + 0.1, x2])),
+        ("Symmetric-even", tk.Symmetric(tk.RBF(1, **c), [[-1.0]], "even"), x - 2.0),
+        ("Symmetric-odd", tk.Symmetric(tk.RBF(1, **c), [[-1.0]], "odd"), x - 2.0),
+        ("SplitKern", tk.SplitKern(tk.RBF(1, lengthscale=0.5, **c), 1.0), np.hstack([x, idx])),
+        ("DEtime", tk.DEtime(Xd=2.0, **c), np.hstack([x, idx])),
+        ("GridRBF", tk.GridRBF(1, **c), x)]
+    return [(name, GPRegression(X, Y, k, noise_var=0.1, **c)) for name, k, X in cases]
+
+
+def lt_kernels_phase():
+    """Each long-tail kernel in a GPRegression at N=1000: one NLML+gradient
+    with the counters, its time and a float64 twin (one_evaluation)."""
+    import torch
+
+    twins = dict(lt_kernel_models(torch.float64))
+    out = {}
+    for name, m in lt_kernel_models(torch.float32):
+        rec, _ = one_evaluation(m, lambda: twins[name], f"{name} in GPRegression, "
+                                f"N={LT_KERN_N} float32")
+        out[name] = {k: rec[k] for k in ("objective_and_grad_ms", "rbf_gram_launches", "nlml",
+                                         "nlml_rel_f32_vs_f64", "grad_rel_f32_vs_f64",
+                                         "device_ops", "device_idle_share")}
+    del twins
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_longtail(rg, smi):
+    """The longtail phase: B1 against its twin at the phase's shapes and
+    timed at two of them; the grid models, the warped GPs, VarGauss and
+    the long-tail kernels, each record's limits applied after the phase's
+    record is printed. Returns B1's launches on these paths, its checks and
+    its times."""
+    import torch
+
+    t_start = time.perf_counter()
+    parts = {}
+    b1_checks = [check_rbf_gram(rg, n, n, 1, torch.float32)
+                 for n in sorted(set(LT_KRON + LT_GRID), reverse=True)]
+    b1_checks += [check_rbf_gram(rg, n, n, d, torch.float32)
+                  for n, d in ((LT_WARP_N, LT_WARP_D), (LT_VG_N, 2), (LT_KERN_N, 1))]
+    b1_times = [time_rbf_gram(rg, LT_KRON[0], LT_KRON[0], 1),
+                time_rbf_gram(rg, LT_WARP_N, LT_WARP_N, LT_WARP_D)]
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    rec = {"phase": "longtail", "dtype": "float32",
+           "kronecker": timed("kronecker", lambda: lt_grid_phase("kronecker")),
+           "grid": timed("grid", lambda: lt_grid_phase("grid")),
+           "warped": timed("warped", lambda: lt_warped_phase("warped")),
+           "input_warped": timed("input_warped", lambda: lt_warped_phase("input_warped")),
+           "var_gauss": timed("var_gauss", lt_var_gauss_phase),
+           "kernels": timed("kernels", lt_kernels_phase),
+           "rbf_gram_launches_expected": {"models": LT_B1, "kernels": LT_KERN_B1},
+           "f32_limits": {"models": LT_F32_TOL, "kernels": LT_KERN_F32_TOL},
+           "float64_limits": LT_EXACT_TOL, "rbf_gram_checks": b1_checks,
+           "rbf_gram_times": b1_times, "nvidia_smi": smi}
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["part_seconds"] = parts
+    emit(rec)
+
+    for name in LT_B1:
+        r = rec[name]
+        check(r["rbf_gram_launches"] == LT_B1[name],
+              f"longtail {name}: {r['rbf_gram_launches']} B1 launches, not {LT_B1[name]}")
+        for k, tol in LT_F32_TOL[name].items():
+            check(r[f"{k}_rel_f32_vs_f64"] <= tol,
+                  f"longtail {name}: float32 vs float64 {k} rel {r[f'{k}_rel_f32_vs_f64']} > "
+                  f"{tol}")
+    for name in ("kronecker", "grid"):
+        d = rec[name]["dense_f64"]
+        check(rec[name]["predict_finite"], f"longtail {name}: non-finite or non-positive predict")
+        for k in ("nlml", "grad", "predict"):
+            check(d[f"{k}_rel"] <= LT_EXACT_TOL[f"dense_{k}"],
+                  f"longtail {name}: float64 {k} against the dense GP rel {d[f'{k}_rel']} > "
+                  f"{LT_EXACT_TOL[f'dense_{k}']} (ROADMAP C(w))")
+    for name in ("warped", "input_warped"):
+        r = rec[name]
+        check(r["predict_finite"], f"longtail {name}: non-finite or non-positive predict")
+        check(r["batched_rows_f64"]["max_rel"] <= LT_EXACT_TOL["batched_rows"]
+              and r["batched_rows_f64"]["launches"]["rbf_gram"] == 2 * LT_B1[name],
+              f"longtail {name} batched rows: {r['batched_rows_f64']}")
+    check(rec["warped"]["quantiles_ordered"], "longtail warped: quantiles out of order")
+    vg = rec["var_gauss"]["optimize_f64"]
+    check(vg["objective_end"] < vg["objective_start"]
+          and vg["rbf_gram_launches"] == LT_B1["var_gauss"] * vg["evaluations"],
+          f"longtail var_gauss optimize: {vg}")
+    for name, r in rec["kernels"].items():
+        check(r["rbf_gram_launches"] == LT_KERN_B1.get(name, 0),
+              f"longtail kernel {name}: {r['rbf_gram_launches']} B1 launches")
+        for k, tol in zip(("nlml", "grad"), LT_KERN_F32_TOL[name]):
+            check(r[f"{k}_rel_f32_vs_f64"] <= tol,
+                  f"longtail kernel {name}: float32 vs float64 {k} rel "
+                  f"{r[f'{k}_rel_f32_vs_f64']} > {tol}")
+    b1 = (sum(rec[n]["rbf_gram_launches"] for n in LT_B1)
+          + sum(r["rbf_gram_launches"] for r in rec["kernels"].values()))
+    return {"launches_rbf_gram": b1, "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
+
+
 def run_svgp(rg, smi):
     """The flagship main path: SVGP.fit at bench.py's configuration, uncut.
     bench.py's warm-up (two fit(iters=100)) with the counters set to 0 just
@@ -4325,6 +4766,8 @@ def main() -> int:
     s15_rec = run_slice15(rg, smi)
     # state space (Kalman filters), bench.py's Kalman stage
     ss_rec = run_state_space(smi)
+    # the long tail's model families, bench.py's long-tail stage
+    lt_rec = run_longtail(rg, smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -4340,7 +4783,7 @@ def main() -> int:
         + sparse_rec["launches"] + cls_rec["launches"] + multi_rec["launches_coreg"]
         + multi_rec["launches_multioutput"] + latent_rec["launches_gplvm"]
         + latent_rec["launches_sparse_hmc"] + s15_rec["launches_rbf_gram"]
-        + ss_rec["launches_rbf_gram"],
+        + ss_rec["launches_rbf_gram"] + lt_rec["launches_rbf_gram"],
         "launches_svgp": svgp_rec["launches"]["rbf_gram"],
         "launches_sparse": sparse_rec["launches"],
         "launches_classification": cls_rec["launches"],
@@ -4350,10 +4793,12 @@ def main() -> int:
         "launches_sparse_hmc": latent_rec["launches_sparse_hmc"],
         "launches_slice15": s15_rec["launches_rbf_gram"],
         "launches_state_space": ss_rec["launches_rbf_gram"],
+        "launches_longtail": lt_rec["launches_rbf_gram"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
                            + sparse_rec["rbf_gram_checks"] + cls_rec["rbf_gram_checks"]
                            + multi_rec["rbf_gram_checks"] + latent_rec["rbf_gram_checks"]
-                           + s15_rec["rbf_gram_checks"] if c["dtype"] == "float32"),
+                           + s15_rec["rbf_gram_checks"] + lt_rec["rbf_gram_checks"]
+                           if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
         "svgp_shapes": svgp_rec["rbf_gram_times"], "sparse_shapes": sparse_rec["rbf_gram_times"],
@@ -4361,6 +4806,7 @@ def main() -> int:
         "multi_output_shapes": multi_rec["rbf_gram_times"],
         "latent_shapes": latent_rec["rbf_gram_times"],
         "slice15_shapes": s15_rec["rbf_gram_times"],
+        "longtail_shapes": lt_rec["rbf_gram_times"],
     }, {
         "name": "gram_matvec_fused", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",

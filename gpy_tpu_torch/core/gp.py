@@ -32,6 +32,7 @@ from ..inference.exact import ExactGaussianInference
 from ..likelihoods.gaussian import Gaussian
 from ..util.normalizer import Standardize
 from .model import Model, _adam
+from .module import check_placement
 from .optim import LBFGS
 
 __all__ = ["GP"]
@@ -66,12 +67,7 @@ class GP(Model):
         if mean_function is not None:
             parts.append(("mean function", mean_function))
         for what, mod in parts:
-            for p in mod.parameters():
-                if p.device != self.device or p.dtype != self.dtype:
-                    raise ValueError(
-                        f"{what} parameters are {p.dtype} on {p.device}, the model is "
-                        f"{self.dtype} on {self.device}: build the {what} with the "
-                        "model's device= and dtype=")
+            check_placement(what, mod, self.device, self.dtype)
         self.X = self._as_data(X)
         if normalizer is True:
             normalizer = Standardize()
@@ -134,25 +130,32 @@ class GP(Model):
         Each row's noisy Gram is built under its binding (one Gram kernel
         launch per row on the card), the C Grams are stacked and go through
         the inference's batched form once: one batched factorization per
-        evaluation. With a mean function each row's Y - m(X) is stacked
+        evaluation. Where a row's targets depend on its parameters (a mean
+        function, WarpedGP's warped Y: `_row_targets`) they are stacked
         too. The rows of an inference without a batched form (no
         `noisy_gram`: EP, Laplace, the iterative inference) are evaluated
         one after the other."""
         inf = self.inference_method
         if not hasattr(inf, "noisy_gram"):
             return torch.stack([self._flat_objective(row) for row in flats])
-        mf = self.mean_function
-        Kys, Ys, log_priors = [], [], []
+        Kys, Ys, rest = [], [], []
         for row in flats:
             with self.bind_flat_raw(row):
                 Kys.append(inf.noisy_gram(self.kern, self._inputs(), self.likelihood,
                                           self.Y_metadata))
-                if mf is not None:
-                    Ys.append(self.Y_normalized - mf.f(self._inputs()))
-                log_priors.append(self.log_prior())
-        Y = torch.stack(Ys) if mf is not None else self.Y_normalized
+                Y, extra = self._row_targets()
+                Ys.append(Y)
+                rest.append(self.log_prior() + extra)
+        Y = self.Y_normalized if Ys[0] is None else torch.stack(Ys)
         ll = inf.batched_log_marginal(torch.stack(Kys), Y)
-        return -ll - torch.stack(log_priors)
+        return -ll - torch.stack(rest)
+
+    def _row_targets(self):
+        """(targets, extra log likelihood) of the row bound now, for the
+        batched objective: the targets are None where every row shares
+        Y_normalized, else Y - m(X)."""
+        mf = self.mean_function
+        return (None if mf is None else self.Y_normalized - mf.f(self._inputs())), 0.0
 
     # --- posterior (cached against parameter values) ----------------------
     def _param_fingerprint(self):

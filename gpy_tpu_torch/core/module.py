@@ -41,7 +41,7 @@ from torch import nn
 from ..config import resolve_device, resolve_dtype
 from .transformations import Logexp, Logistic, Transform
 
-__all__ = ["Module", "Param", "ParamSpec", "TieGroup"]
+__all__ = ["Module", "Param", "ParamSpec", "TieGroup", "check_placement"]
 
 
 def _as_tensor(value, dtype, device) -> torch.Tensor:
@@ -50,6 +50,16 @@ def _as_tensor(value, dtype, device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.detach().to(device=device, dtype=dtype)
     return torch.tensor(np.asarray(value, dtype=np.float64), dtype=dtype, device=device)
+
+
+def check_placement(what: str, mod, device, dtype) -> None:
+    """Raise unless every parameter of `mod` is `dtype` on `device`: a
+    model's parts are built with the model's device= and dtype=."""
+    for p in mod.parameters():
+        if p.device != device or p.dtype != dtype:
+            raise ValueError(
+                f"{what} parameters are {p.dtype} on {p.device}, the model is {dtype} on "
+                f"{device}: build the {what} with the model's device= and dtype=")
 
 
 class ParamSpec:

@@ -1,10 +1,15 @@
 """Covariance functions (public names mirror gpy_tpu.kern)."""
+from .basis_funcs import (BasisFuncKernel, ChangePointBasisFuncKernel, DomainKernel,
+                          LinearSlopeBasisFuncKernel, LogisticBasisFuncKernel,
+                          PolynomialBasisFuncKernel)
 from .coregionalize import Coregionalize, Hierarchical, IndependentOutputs
+from .integral import Integral, Integral_Limits, Multidimensional_Integral_Limits
 from .kern import Add, CombinationKernel, Kern, Prod
 from .linear import Linear, LinearFull, TruncLinear, TruncLinear_inf
 from .misc import MLP, Brownian, Poly, Spline
 from .multioutput_kern import DiffKern, MultioutputDerivativeKern, MultioutputKern
 from .periodic import PeriodicExponential, PeriodicMatern32, PeriodicMatern52, StdPeriodic
+from .symmetric import DEtime, GridRBF, SplitKern, Symmetric
 from .static import Bias, Fixed, Precomputed, Static, White, WhiteHeteroscedastic
 from .stationary import (OU, RBF, Cosine, Exponential, ExpQuad, ExpQuadCosine, Matern32,
                          Matern52, RatQuad, Sinc, Stationary)
@@ -25,6 +30,9 @@ sde_White = White
 sde_Bias = Bias
 sde_Brownian = Brownian
 
+# GPy kern/__init__.py:59: DiffGenomeKern is the DEtime split kernel
+DiffGenomeKern = DEtime
+
 __all__ = ["Kern", "CombinationKernel", "Add", "Prod", "Stationary", "RBF", "ExpQuad",
            "Exponential", "OU", "Matern32", "Matern52", "Cosine", "ExpQuadCosine", "Sinc",
            "RatQuad", "Static", "White", "Bias", "Fixed", "WhiteHeteroscedastic", "Precomputed",
@@ -33,4 +41,8 @@ __all__ = ["Kern", "CombinationKernel", "Add", "Prod", "Stationary", "RBF", "Exp
            "DiffKern", "StdPeriodic", "PeriodicExponential", "PeriodicMatern32",
            "PeriodicMatern52", "MLP", "Poly", "Brownian", "Spline", "sde_Matern32",
            "sde_Matern52", "sde_Exponential", "sde_RBF", "sde_RatQuad", "sde_StdPeriodic",
-           "sde_Linear", "sde_White", "sde_Bias", "sde_Brownian"]
+           "sde_Linear", "sde_White", "sde_Bias", "sde_Brownian", "BasisFuncKernel",
+           "PolynomialBasisFuncKernel", "LinearSlopeBasisFuncKernel", "ChangePointBasisFuncKernel",
+           "DomainKernel", "LogisticBasisFuncKernel", "Integral", "Integral_Limits",
+           "Multidimensional_Integral_Limits", "Symmetric", "SplitKern", "DEtime", "GridRBF",
+           "DiffGenomeKern"]

@@ -32,7 +32,11 @@ SURFACES = {
         "MultioutputDerivativeKern", "DiffKern", "StdPeriodic", "PeriodicExponential",
         "PeriodicMatern32", "PeriodicMatern52", "MLP", "Poly", "Brownian", "Spline",
         "sde_Matern32", "sde_Matern52", "sde_Exponential", "sde_RBF", "sde_RatQuad",
-        "sde_StdPeriodic", "sde_Linear", "sde_White", "sde_Bias", "sde_Brownian"}),
+        "sde_StdPeriodic", "sde_Linear", "sde_White", "sde_Bias", "sde_Brownian",
+        "BasisFuncKernel", "LogisticBasisFuncKernel", "LinearSlopeBasisFuncKernel",
+        "ChangePointBasisFuncKernel", "PolynomialBasisFuncKernel", "DomainKernel", "Symmetric",
+        "SplitKern", "DEtime", "DiffGenomeKern", "GridRBF", "Integral", "Integral_Limits",
+        "Multidimensional_Integral_Limits"}),
     "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {
         "Gaussian", "HeteroscedasticGaussian", "Bernoulli", "Binomial", "Poisson", "Exponential",
         "Gamma", "StudentT", "Weibull", "LogLogistic", "LogGaussian", "MixedNoise",
@@ -48,11 +52,14 @@ SURFACES = {
         "SparseGPClassificationUncertainInput", "GPLVM", "SparseGPLVM", "BayesianGPLVM",
         "BayesianGPLVMMiniBatch", "SparseGPMiniBatch", "MRD", "SSGPLVM", "SSMRD", "BCGPLVM",
         "DPBayesianGPLVM", "GPMultioutRegression", "GPMultioutRegressionMD", "TPRegression",
-        "StateSpace"}),
+        "StateSpace", "WarpedGP", "InputWarpedGP", "GPKroneckerGaussianRegression",
+        "GPRegressionGrid", "GPVariationalGaussianApproximation", "GradientChecker",
+        "HessianChecker", "SkewChecker"}),
     "GPY_INFERENCE": ("gpy_tpu_torch.inference", {
         "ExactGaussianInference", "VarDTC", "VarDTC_minibatch", "VarDTCMissingData", "FITC",
         "DTC", "PEP", "SVGPInference", "Laplace", "LaplaceBlock", "EP", "EPDTC",
-        "ExactStudentTInference", "VarDTC_SVI_Multiout", "VarDTC_SVI_Multiout_Miss"}),
+        "ExactStudentTInference", "VarDTC_SVI_Multiout", "VarDTC_SVI_Multiout_Miss", "VarGauss",
+        "GaussianGridInference"}),
     "GPY_PRIORS": ("gpy_tpu_torch.core.priors", {
         "Gaussian", "Uniform", "LogGaussian", "MultivariateGaussian", "Gamma",
         "InverseGamma", "Exponential", "StudentT", "HalfT", "DGPLVM", "DGPLVM_Lamda",
