@@ -253,6 +253,30 @@ Phases, each printing one JSON line:
                 GPRegression at N=1000: one NLML+gradient against float64
                 (4 B1 launches for Symmetric, SplitKern and DEtime over an
                 RBF, 1 for GridRBF).
+ 33. lfm_symbolic -- the latent-force models and the symbolic kernel and
+                likelihood at shapes chosen here (bench.py has none): T
+                times an output on linspace(0.1, 10), R forces
+                sin((q+1) t/2 + phi_q), two of them driving each output;
+                GPRegression over EQ_ODE2 at 4 outputs x 250 times, rank 2,
+                float64: one NLML+gradient (best and median of 3, device
+                operations and ms, idle share, host syncs, index-column
+                reads, peak device memory), predict at 4 x 100 new times,
+                Kdiag_per_force against diag(K), K + noise I positive
+                definite, the card against the port's CPU evaluation on a
+                4 x 50 subset, the float32 / complex64 reading (recorded);
+                SparseGPRegression over EQ_ODE1 at 20 x 100, rank 3, M=60:
+                one NLML+gradient, optimize(max_iters=20) (the bound must
+                rise); IBPLFM at 20 x 100, R=5, M=50: one NLML+gradient,
+                two batched rows against unbatched evaluation, optimize(
+                max_iters=100) with its gates; ODE_UY, ODE_UYC and ODE_t
+                over 500 U/Y pairs and ODE_st on a 25 x 20 (t, x) grid: one
+                float32 NLML+gradient against float64 each, and ODE_UY at
+                T = 1000 in float64 against central differences (ROADMAP
+                C(ab)); the symbolic kernel at bench.py:847-853's HMC data
+                against RBF(2) (and with sqrt(2) log(2) constants), and the
+                symbolic Student-t (nu = 4) under Laplace against
+                StudentT(deg_free=4) in float64, float32 against float64,
+                optimize(max_iters=20) (1 B1 launch an NLML+gradient).
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -4570,6 +4594,485 @@ def run_longtail(rg, smi):
     return {"launches_rbf_gram": b1, "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
 
 
+# --- latent-force and symbolic models: A15's rest ----------------------------
+
+# bench.py and BASELINE.json have no shape for these families; chosen here as
+# the workloads latent-force models are used on, a few hundred frames by
+# tens of outputs (motion-capture joint angles, gene-expression time
+# courses). T times an output on linspace(0.1, 10, T); R latent forces
+# sin((q+1) t/2 + phi_q); y_d = sum_q S_dq u_q + 0.05 eps, S ~ N(0, 1) with
+# all but 2 forces of each output zeroed. The wofz-based models (EQ_ODE2,
+# IBPLFM) run in float64 (ROADMAP C(c)), their float32 / complex64 reading
+# recorded, not held; so is EQ_ODE1's.
+LFM2_D, LFM2_T, LFM2_R, LFM2_PRED, LFM2_SUB = 4, 250, 2, 100, 50
+LFM1_D, LFM1_T, LFM1_R, LFM1_MZ, LFM1_ITERS = 20, 100, 3, 20, 20
+IBP_D, IBP_T, IBP_R, IBP_M, IBP_ITERS = 20, 100, 5, 50, 100
+UY_PAIRS, UY_LONG_T, ST_GRID = 500, 1000.0, (25, 20)
+# the identities held in float64 on the card: the card against the port's
+# CPU evaluation on a 4 x 50 subset, Kdiag_per_force against diag(K), rows
+# through the batched objective against unbatched evaluation, ODE_UY's
+# gradient at T = 1000 against central differences (C(ab)), the symbolic
+# kernel against RBF(2) and the symbolic Student-t against StudentT
+LFM_EXACT_TOL = {"cpu_vs_card": 1e-10, "kdiag": 1e-10, "batched_rows": 1e-10,
+                 "uy_central_differences": 1e-6, "symbolic_vs_rbf": 1e-12,
+                 "symbolic_vs_studentt": 1e-10}
+# float32 against a float64 twin, rel NLML / max-relative gradient, held for
+# the ODE_UY family and the symbolic Student-t: ~10x the readings on an H100
+# (ODE_UY 4.1e-4 / 1.7e-4, ODE_UYC 6.1e-5 / 4.6e-5, ODE_t 5.0e-6 / 1.1e-5,
+# ODE_st 3.9e-5 / 1.2e-5, the symbolic Student-t 9.2e-7 / 4.8e-6)
+LFM_F32_TOL = {"ode_uy": (4e-3, 2e-3), "ode_uyc": (6e-4, 5e-4), "ode_t": (5e-5, 1.2e-4),
+               "ode_st": (4e-4, 1.2e-4), "symbolic_lik": (1e-5, 5e-5)}
+# B1 launches an NLML+gradient: the RBF twin of the symbolic kernel and the
+# symbolic likelihood's Laplace model one each; the ODE models, IBPLFM and
+# Symbolic none
+LFM_B1 = {"symbolic_rbf_twin": 1, "symbolic_lik": 1}
+
+
+def lfm_data(D, T, R, seed):
+    """X = [t, output] rows, Y (D*T, 1), the mixing S (D, R) with all but 2
+    forces of each output zeroed (every force kept where R <= 2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.1, 10.0, T)
+    phi = rng.uniform(0.0, 2 * np.pi, R)
+    U = np.sin((np.arange(R)[:, None] + 1) * t[None, :] / 2 + phi[:, None])
+    S = rng.standard_normal((D, R))
+    if R > 2:
+        for d in range(D):
+            S[d, rng.permutation(R)[2:]] = 0.0
+    Y = S @ U + 0.05 * rng.standard_normal((D, T))
+    X = np.vstack([np.stack([t, np.full(T, float(d))], 1) for d in range(D)])
+    return X, Y.reshape(-1, 1), S
+
+
+def lfm_evaluation(m, what, reps=3):
+    """One NLML+gradient of m with the counters set to 0 just before it and
+    read just after, the peak device memory it took, the index-column host
+    reads it made, best and median of `reps` timed ones, its profile and its
+    host syncs. Returns (record, objective, gradient)."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import eq_ode1
+
+    x = m.optimizer_array
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reads = eq_ode1.index_reads
+    reset_counters()
+    t0 = time.perf_counter()
+    f, g = m._objective_and_grad(x)
+    launches = counters()
+    torch.cuda.synchronize()
+    rec = {"nlml": f, "first_call_ms": (time.perf_counter() - t0) * 1e3, "launches": launches,
+           "index_reads": eq_ode1.index_reads - reads,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_mem_above_start_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    check(math.isfinite(f) and np.isfinite(g).all(), f"{what}: non-finite NLML or gradient")
+    rec["ms_best"], rec["ms_median"] = lt_best_median(lambda: m._objective_and_grad(x), reps)
+    prof = profile_objective(m, x, what=f"one objective_and_grad, {what}")
+    rec.update({"device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+                "device_ops": prof["device_ops"], "device_idle_share": prof["device_idle_share"],
+                "top": prof["top"][:6]})
+    with_host_syncs(rec, m)
+    return rec, f, g
+
+
+def f32_reading(build, x, f64, g64):
+    """rel NLML and max-relative gradient of the float32 model `build()` at
+    the raw vector x against the float64 (f64, g64)."""
+    import numpy as np
+
+    m32 = build()
+    f32, g32 = m32._objective_and_grad(x.astype(np.float32))
+    nlml_rel, grad_rel = rel_errors(f32, g32, f64, g64)
+    return {"nlml_f32": f32, "nlml_rel_f32_vs_f64": nlml_rel, "grad_rel_f32_vs_f64": grad_rel}
+
+
+def lfm_eq_ode2_phase():
+    """GPRegression over EQ_ODE2 at 4 outputs x 250 times, rank 2, float64:
+    one NLML+gradient (lfm_evaluation), predict at 4 x 100 new times,
+    Kdiag_per_force against diag(K), K + noise I positive definite, the
+    card against the port's CPU evaluation on a 4 x 50 subset, and the
+    float32 reading."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import EQ_ODE2
+    from gpy_tpu_torch.models import GPRegression
+
+    X, Y, _ = lfm_data(LFM2_D, LFM2_T, LFM2_R, seed=2)
+
+    def make(X, Y, device="cuda", dtype=torch.float64):
+        c = dict(device=device, dtype=dtype)
+        return GPRegression(X, Y, EQ_ODE2(output_dim=LFM2_D, rank=LFM2_R, **c), noise_var=0.1, **c)
+
+    m = make(X, Y)
+    rec, f, g = lfm_evaluation(m, f"EQ_ODE2 GPRegression, N={len(X)} float64")
+    x = m.optimizer_array
+    ts = np.linspace(0.2, 9.8, LFM2_PRED)
+    Xs = np.vstack([np.stack([ts, np.full_like(ts, d)], 1) for d in range(LFM2_D)])
+    t0 = time.perf_counter()
+    mu, var = m.predict(Xs)
+    torch.cuda.synchronize()
+    rec["predict_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["predict_finite"] = bool(np.isfinite(mu).all() and np.isfinite(var).all() and (var > 0).all())
+    Xt = m.X
+    with torch.no_grad():
+        K = m.kern.K(Xt)
+        kd = m.kern.Kdiag(Xt)
+        dK = torch.diagonal(K)
+        rec["kdiag_rel"] = float((kd - dK).abs().max() / dK.abs().max())
+        Ky = K + float(m.likelihood.variance) * torch.eye(len(X), dtype=K.dtype, device=K.device)
+        rec["noisy_gram_pd"] = int(torch.linalg.cholesky_ex(Ky).info) == 0
+        rec["K_min_eig"] = float(torch.linalg.eigvalsh(0.5 * (K + K.T)).min())
+        rec["K_asymmetry"] = float((K - K.T).abs().max() / K.abs().max())
+    del K, Ky
+    sub = np.concatenate([np.arange(d * LFM2_T, d * LFM2_T + LFM2_T, LFM2_T // LFM2_SUB)
+                          for d in range(LFM2_D)])
+    m_card, m_cpu = make(X[sub], Y[sub]), make(X[sub], Y[sub], device="cpu")
+    fc, gc = m_card._objective_and_grad(x)
+    t0 = time.perf_counter()
+    fh, gh = m_cpu._objective_and_grad(x)
+    rec["cpu_vs_card"] = {"rows": len(sub), "cpu_seconds": time.perf_counter() - t0,
+                          "nlml_rel": abs(fc - fh) / abs(fh),
+                          "grad_rel": float(np.max(np.abs(gc - gh)) / np.max(np.abs(gh)))}
+    rec["float32"] = f32_reading(lambda: make(X, Y, dtype=torch.float32), x, f, g)
+    del m, m_card, m_cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lfm_eq_ode1_phase():
+    """SparseGPRegression over EQ_ODE1 at 20 outputs x 100 times, rank 3, Z
+    = 20 inducing times a force on the latent-force rows (M = 60), float64:
+    one NLML+gradient, optimize(max_iters=20) (the reference raises there,
+    C(ad)), the float32 reading."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import EQ_ODE1
+    from gpy_tpu_torch.models import SparseGPRegression
+
+    X, Y, _ = lfm_data(LFM1_D, LFM1_T, LFM1_R, seed=1)
+    tz = np.linspace(0.1, 10.0, LFM1_MZ)
+    Z = np.vstack([np.stack([tz, np.full_like(tz, LFM1_D + q)], 1) for q in range(LFM1_R)])
+
+    def make(dtype=torch.float64):
+        c = dict(device="cuda", dtype=dtype)
+        return SparseGPRegression(X, Y, Z=Z, kernel=EQ_ODE1(output_dim=LFM1_D, rank=LFM1_R, **c),
+                                  noise_var=0.1, **c)
+
+    m = make()
+    rec, f, g = lfm_evaluation(m, f"EQ_ODE1 SparseGPRegression, N={len(X)}, M={len(Z)} float64")
+    x = m.optimizer_array
+    rec["float32"] = f32_reading(lambda: make(torch.float32), x, f, g)
+    res, evals, secs, _ = timed_optimize(m, LFM1_ITERS)
+    f1 = m._objective_and_grad(m.optimizer_array)[0]
+    rec["optimize"] = {"max_iters": LFM1_ITERS, "seconds": secs, "evaluations": evals,
+                       "nlml_start": f, "nlml_end": f1, "scipy_message": res.status}
+    del m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lfm_ibp_phase():
+    """IBPLFM at 20 outputs x 100 times, R = 5, num_inducing=50, float64:
+    one NLML+gradient, two rows through the batched objective against
+    unbatched evaluation (the gated bound, not VarDTC's), optimize(
+    max_iters=100) with the gates it finds, the float32 reading."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.models import IBPLFM
+
+    X, Y, S = lfm_data(IBP_D, IBP_T, IBP_R, seed=3)
+
+    def make(dtype=torch.float64):
+        return IBPLFM(X, Y, input_dim=2, output_dim=IBP_D, rank=IBP_R, num_inducing=IBP_M,
+                      device="cuda", dtype=dtype)
+
+    m = make()
+    rec, f, g = lfm_evaluation(m, f"IBPLFM, N={len(X)}, R={IBP_R}, M={IBP_M} float64")
+    x = m.optimizer_array
+    rec["float32"] = f32_reading(lambda: make(torch.float32), x, f, g)
+    rec["batched_rows_f64"] = lt_batched_rows(m)
+    m.set_flat_raw(x)
+    res, evals, secs, _ = timed_optimize(m, IBP_ITERS)
+    f1 = m._objective_and_grad(m.optimizer_array)[0]
+    gates = m.gates
+    drives = S != 0.0
+    top2 = np.argsort(-gates, axis=1)[:, :2]
+    hit = sum(int(drives[d, q]) for d in range(IBP_D) for q in top2[d])
+    rec["optimize"] = {
+        "max_iters": IBP_ITERS, "seconds": secs, "evaluations": evals, "nlml_start": f,
+        "nlml_end": f1, "scipy_message": res.status, "gates": gates.round(4).tolist(),
+        "open_gates_per_output_mean": float(np.mean(np.sum(gates > 0.5, axis=1))),
+        "true_forces_among_two_largest_gates_share": hit / (2 * IBP_D),
+        "note": "the learned forces are identified up to a permutation; the share matches "
+                "force indices literally"}
+    del m
+    torch.cuda.empty_cache()
+    return rec
+
+
+def uy_data(T_end, seed=0):
+    """UY_PAIRS times on linspace(0, T_end): U = sin t, Y the response of
+    dy/dt + y = U from y(0) = 0, each plus 0.05 eps."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, T_end, UY_PAIRS)[:, None]
+    y = (np.sin(t) - np.cos(t) + np.exp(-t)) / 2
+    return t, np.sin(t) + 0.05 * rng.standard_normal(t.shape), y + 0.05 * rng.standard_normal(t.shape)
+
+
+def uy_models(dtype, T_end=10.0):
+    """GPRegression over ODE_UY, ODE_UYC and ODE_t on the U/Y pairs (U rows
+    index 0 for ODE_UY and ODE_UYC, 1 for ODE_t) and over ODE_st on a 25 x
+    20 (t, x) grid with both indices."""
+    import numpy as np
+    import gpy_tpu_torch.kern as tk
+    from gpy_tpu_torch.models import GPRegression
+
+    c = dict(device="cuda", dtype=dtype)
+    t, u, y = uy_data(T_end)
+    z, o = np.zeros_like(t), np.ones_like(t)
+    X_uy = np.vstack([np.hstack([t, z]), np.hstack([t, o])])
+    X_t = np.vstack([np.hstack([t, o]), np.hstack([t, z])])
+    UY = np.vstack([u, y])
+    tg, xg = np.meshgrid(np.linspace(0, 3, ST_GRID[0]), np.linspace(0, 2, ST_GRID[1]), indexing="ij")
+    tg, xg = tg.reshape(-1, 1), xg.reshape(-1, 1)
+    ust = np.sin(tg) * np.cos(xg)
+    X_st = np.vstack([np.hstack([tg, xg, np.zeros_like(tg)]), np.hstack([tg, xg, np.ones_like(tg)])])
+    Y_st = np.vstack([ust, ust + 0.5 * np.cos(tg) * np.cos(xg)])
+    return {"ode_uy": GPRegression(X_uy, UY, tk.ODE_UY(2, **c), noise_var=0.1, **c),
+            "ode_uyc": GPRegression(X_uy, UY, tk.ODE_UYC(2, **c), noise_var=0.1, **c),
+            "ode_t": GPRegression(X_t, UY, tk.ODE_t(2, **c), noise_var=0.1, **c),
+            "ode_st": GPRegression(X_st, Y_st, tk.ODE_st(3, **c), noise_var=0.1, **c)}
+
+
+def lfm_uy_phase():
+    """Each ODE_UY-family model: one float32 NLML+gradient against a float64
+    twin (one_evaluation) with its host syncs; ODE_UY at T = 1000 in
+    float64: every gradient entry finite and equal to central differences of
+    the NLML (C(ab))."""
+    import numpy as np
+    import torch
+
+    twins = uy_models(torch.float64)
+    out = {}
+    for name, m in uy_models(torch.float32).items():
+        rec, _ = one_evaluation(m, lambda: twins[name], f"{name} GPRegression, "
+                                f"N={m.num_data} float32")
+        out[name] = with_host_syncs({k: rec[k] for k in (
+            "objective_and_grad_ms", "objective_and_grad_ms_f64", "rbf_gram_launches", "nlml",
+            "nlml_rel_f32_vs_f64", "grad_rel_f32_vs_f64", "device_ops", "device_idle_share")}, m)
+    del twins
+    m = uy_models(torch.float64, UY_LONG_T)["ode_uy"]
+    x = m.optimizer_array
+    f, g = m._objective_and_grad(x)
+    h = 1e-5
+    fd = np.array([(m._objective_and_grad(x + h * e)[0] - m._objective_and_grad(x - h * e)[0])
+                   / (2 * h) for e in np.eye(x.size)])
+    out["ode_uy_long_range_f64"] = {
+        "T": UY_LONG_T, "rows": m.num_data, "nlml": f, "grad": g.tolist(),
+        "grad_finite": bool(np.isfinite(g).all()),
+        "rel_vs_central_differences": float(np.max(np.abs(g - fd)) / np.max(np.abs(g)))}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sym_kernel_exprs():
+    """The RBF of RBF(2) as a sympy expression, and the same times
+    sqrt(2) log(2), whose constants torch's functions refuse as numbers."""
+    import sympy
+
+    x0, x1, z0, z1, v, l = sympy.symbols("x_0 x_1 z_0 z_1 v l")
+    rbf = v * sympy.exp(-((x0 - z0) ** 2 + (x1 - z1) ** 2) / (2 * l ** 2))
+    return rbf, sympy.sqrt(2) * sympy.log(2) * rbf
+
+
+def _student_t_logpdf():
+    """log of the Student-t density with a literal nu = 4 and scale s."""
+    import sympy
+
+    f, y = sympy.symbols("f y")
+    s = sympy.Symbol("s", positive=True)
+    nu = sympy.Integer(4)
+    return (sympy.loggamma((nu + 1) / 2) - sympy.loggamma(nu / 2)
+            - sympy.log(nu * sympy.pi * s) / 2
+            - (nu + 1) / 2 * sympy.log(1 + (y - f) ** 2 / (nu * s)))
+
+
+def lfm_symbolic_phase():
+    """The symbolic kernel in a GPRegression at bench.py:847-853's HMC data
+    (N=1000, D=2) against the port's RBF(2) at the same parameters (float64,
+    NLML and gradient), its constant-carrying variant against RBF(2) with
+    the variance scaled, and each model's NLML+gradient ms; the symbolic
+    Student-t (nu = 4) under Laplace with RBF on the same data with 5% of Y
+    replaced by outliers, against StudentT(deg_free=4) (float64), float32
+    against float64, optimize(max_iters=20) in float64."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.core.gp import GP
+    from gpy_tpu_torch.inference.laplace import Laplace
+    from gpy_tpu_torch.kern import RBF, Symbolic
+    from gpy_tpu_torch.likelihoods import StudentT, SymbolicLikelihood
+    from gpy_tpu_torch.models import GPRegression
+
+    X, Y = hmc_data()
+    c64 = dict(device="cuda", dtype=torch.float64)
+    rbf_expr, const_expr = _sym_kernel_exprs()
+    v, l = 1.3, 0.7
+    scale = float(np.sqrt(2) * np.log(2))
+    out = {}
+    m_rbf = GPRegression(X, Y, RBF(2, variance=v, lengthscale=l, **c64), noise_var=0.1, **c64)
+    x_rbf = m_rbf.optimizer_array
+    f_rbf, g_rbf = m_rbf._objective_and_grad(x_rbf)
+    reset_counters()
+    m_rbf._objective_and_grad(x_rbf)
+    b1_rbf = counters()["rbf_gram"]
+    out["rbf_twin"] = {"nlml": f_rbf, "rbf_gram_launches": b1_rbf,
+                       "ms_best_median": lt_best_median(lambda: m_rbf._objective_and_grad(x_rbf))}
+    for name, expr, twin_v in (("symbolic", rbf_expr, v), ("symbolic_constants", const_expr,
+                                                            v * scale)):
+        ms = GPRegression(X, Y, Symbolic(2, k=expr, parameters={"v": v, "l": l}, **c64),
+                          noise_var=0.1, **c64)
+        xs = ms.optimizer_array  # [l, v, noise]: the parameters sorted by name
+        reset_counters()
+        fs, gs = ms._objective_and_grad(xs)
+        launches = counters()
+        if twin_v == v:
+            ft, gt = f_rbf, g_rbf
+        else:
+            mt = GPRegression(X, Y, RBF(2, variance=twin_v, lengthscale=l, **c64), noise_var=0.1,
+                              **c64)
+            ft, gt = mt._objective_and_grad(mt.optimizer_array)
+            del mt
+        # the twin's [variance, lengthscale, noise] as the symbolic model's [l, v, noise]; v's
+        # raw gradient through Logexp (dv/draw = 1 - e^{-v}) and the scale
+        gt = gt[[1, 0, 2]]
+        gt[1] *= (twin_v / v) * (-math.expm1(-v)) / (-math.expm1(-twin_v))
+        out[name] = {"nlml": fs, "launches": launches,
+                     "nlml_rel_vs_rbf": abs(fs - ft) / abs(ft),
+                     "grad_rel_vs_rbf": float(np.max(np.abs(gs - gt)) / np.max(np.abs(gt))),
+                     "ms_best_median": lt_best_median(lambda: ms._objective_and_grad(xs))}
+        del ms
+    # the symbolic Student-t under Laplace
+    rng = np.random.default_rng(4)
+    Yo = Y.astype(np.float64).copy()
+    idx = rng.permutation(len(Yo))[: len(Yo) // 20]
+    Yo[idx] = rng.uniform(-3.0, 3.0, (len(idx), 1))
+
+    def make(lik_kind, dtype):
+        c = dict(device="cuda", dtype=dtype)
+        lik = (SymbolicLikelihood(_student_t_logpdf(), parameters={"s": 0.1}, **c)
+               if lik_kind == "symbolic" else StudentT(deg_free=4.0, sigma2=0.1, **c))
+        return GP(X, Yo, RBF(2, **c), lik, inference_method=Laplace(), **c)
+
+    m = make("symbolic", torch.float64)
+    rec, f, g = lfm_evaluation(m, f"symbolic Student-t under Laplace, N={len(X)} float64")
+    x = m.optimizer_array
+    ft, gt = make("studentt", torch.float64)._objective_and_grad(x)
+    rec["nlml_rel_vs_studentt"] = abs(f - ft) / abs(ft)
+    rec["grad_rel_vs_studentt"] = float(np.max(np.abs(g - gt)) / np.max(np.abs(gt)))
+    rec["float32"] = f32_reading(lambda: make("symbolic", torch.float32), x, f, g)
+    res, evals, secs, launches = timed_optimize(m, 20)
+    f1 = m._objective_and_grad(m.optimizer_array)[0]
+    rec["optimize_f64"] = {"max_iters": 20, "seconds": secs, "evaluations": evals,
+                           "rbf_gram_launches": launches["rbf_gram"], "nlml_start": f,
+                           "nlml_end": f1, "scipy_message": res.status}
+    out["symbolic_lik"] = rec
+    del m, m_rbf
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lfm_symbolic(rg, smi):
+    """The lfm_symbolic phase: B1 against its twin at the symbolic models'
+    shape; EQ_ODE2 dense, EQ_ODE1 sparse, IBPLFM, the ODE_UY family, the
+    symbolic kernel and likelihood, each record's limits applied after the
+    phase's record is printed. Returns B1's launches on these paths, its
+    checks and its times."""
+    import torch
+
+    t_start = time.perf_counter()
+    parts = {}
+    b1_checks = [check_rbf_gram(rg, HMC_N, HMC_N, HMC_D, dt) for dt in (torch.float32,
+                                                                        torch.float64)]
+    b1_times = [time_rbf_gram(rg, HMC_N, HMC_N, HMC_D)]
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    rec = {"phase": "lfm_symbolic", "dtype": "float64 (float32 readings beside)",
+           "eq_ode2": timed("eq_ode2", lfm_eq_ode2_phase),
+           "eq_ode1": timed("eq_ode1", lfm_eq_ode1_phase),
+           "ibplfm": timed("ibplfm", lfm_ibp_phase),
+           "ode_uy_family": timed("ode_uy_family", lfm_uy_phase),
+           "symbolic": timed("symbolic", lfm_symbolic_phase),
+           "exact_limits": LFM_EXACT_TOL, "f32_limits": LFM_F32_TOL,
+           "rbf_gram_launches_expected": LFM_B1, "rbf_gram_checks": b1_checks,
+           "rbf_gram_times": b1_times, "nvidia_smi": smi}
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["part_seconds"] = parts
+    emit(rec)
+
+    e2, e1, ibp = rec["eq_ode2"], rec["eq_ode1"], rec["ibplfm"]
+    for name, r in (("eq_ode2", e2), ("eq_ode1", e1), ("ibplfm", ibp)):
+        check(all(v == 0 for v in r["launches"].values()),
+              f"lfm {name}: launches of the port's kernels {r['launches']}")
+    check(e2["predict_finite"], "lfm eq_ode2: non-finite or non-positive predict")
+    check(e2["kdiag_rel"] <= LFM_EXACT_TOL["kdiag"],
+          f"lfm eq_ode2: Kdiag_per_force against diag(K) rel {e2['kdiag_rel']}")
+    check(e2["noisy_gram_pd"], "lfm eq_ode2: K + noise I is not positive definite")
+    cc = e2["cpu_vs_card"]
+    check(max(cc["nlml_rel"], cc["grad_rel"]) <= LFM_EXACT_TOL["cpu_vs_card"],
+          f"lfm eq_ode2: the card against the CPU {cc}")
+    for name, r in (("eq_ode1", e1), ("ibplfm", ibp)):
+        o = r["optimize"]
+        check(o["nlml_end"] < o["nlml_start"], f"lfm {name} optimize: the bound fell {o}")
+    br = ibp["batched_rows_f64"]
+    check(br["max_rel"] <= LFM_EXACT_TOL["batched_rows"] and all(
+        v == 0 for v in br["launches"].values()), f"lfm ibplfm batched rows: {br}")
+    fam = rec["ode_uy_family"]
+    for name in ("ode_uy", "ode_uyc", "ode_t", "ode_st"):
+        r = fam[name]
+        check(r["rbf_gram_launches"] == 0, f"lfm {name}: {r['rbf_gram_launches']} B1 launches")
+        for k, tol in zip(("nlml", "grad"), LFM_F32_TOL[name]):
+            check(r[f"{k}_rel_f32_vs_f64"] <= tol,
+                  f"lfm {name}: float32 vs float64 {k} rel {r[f'{k}_rel_f32_vs_f64']} > {tol}")
+    lr = fam["ode_uy_long_range_f64"]
+    check(lr["grad_finite"] and lr["rel_vs_central_differences"]
+          <= LFM_EXACT_TOL["uy_central_differences"], f"lfm ode_uy at T = {UY_LONG_T}: {lr}")
+    sym = rec["symbolic"]
+    check(sym["rbf_twin"]["rbf_gram_launches"] == LFM_B1["symbolic_rbf_twin"],
+          f"lfm symbolic: the RBF twin made {sym['rbf_twin']['rbf_gram_launches']} B1 launches")
+    for name in ("symbolic", "symbolic_constants"):
+        r = sym[name]
+        check(all(v == 0 for v in r["launches"].values()), f"lfm {name}: launches {r['launches']}")
+        check(max(r["nlml_rel_vs_rbf"], r["grad_rel_vs_rbf"]) <= LFM_EXACT_TOL["symbolic_vs_rbf"],
+              f"lfm {name} against RBF(2): {r}")
+    sl = sym["symbolic_lik"]
+    check(sl["launches"]["rbf_gram"] == LFM_B1["symbolic_lik"],
+          f"lfm symbolic likelihood: {sl['launches']['rbf_gram']} B1 launches")
+    check(max(sl["nlml_rel_vs_studentt"], sl["grad_rel_vs_studentt"])
+          <= LFM_EXACT_TOL["symbolic_vs_studentt"], "lfm symbolic likelihood against StudentT: "
+          f"{sl['nlml_rel_vs_studentt']}, {sl['grad_rel_vs_studentt']}")
+    for k, tol in zip(("nlml", "grad"), LFM_F32_TOL["symbolic_lik"]):
+        v = sl["float32"][f"{k}_rel_f32_vs_f64"]
+        check(v <= tol, f"lfm symbolic likelihood: float32 vs float64 {k} rel {v} > {tol}")
+    o = sl["optimize_f64"]
+    check(o["nlml_end"] < o["nlml_start"]
+          and o["rbf_gram_launches"] == LFM_B1["symbolic_lik"] * o["evaluations"],
+          f"lfm symbolic likelihood optimize: {o}")
+    b1 = (sym["rbf_twin"]["rbf_gram_launches"] + sl["launches"]["rbf_gram"]
+          + o["rbf_gram_launches"])
+    return {"launches_rbf_gram": b1, "rbf_gram_checks": b1_checks, "rbf_gram_times": b1_times}
+
+
 def run_svgp(rg, smi):
     """The flagship main path: SVGP.fit at bench.py's configuration, uncut.
     bench.py's warm-up (two fit(iters=100)) with the counters set to 0 just
@@ -4768,6 +5271,8 @@ def main() -> int:
     ss_rec = run_state_space(smi)
     # the long tail's model families, bench.py's long-tail stage
     lt_rec = run_longtail(rg, smi)
+    # the latent-force models and the symbolic kernel and likelihood
+    lfm_rec = run_lfm_symbolic(rg, smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -4783,7 +5288,8 @@ def main() -> int:
         + sparse_rec["launches"] + cls_rec["launches"] + multi_rec["launches_coreg"]
         + multi_rec["launches_multioutput"] + latent_rec["launches_gplvm"]
         + latent_rec["launches_sparse_hmc"] + s15_rec["launches_rbf_gram"]
-        + ss_rec["launches_rbf_gram"] + lt_rec["launches_rbf_gram"],
+        + ss_rec["launches_rbf_gram"] + lt_rec["launches_rbf_gram"]
+        + lfm_rec["launches_rbf_gram"],
         "launches_svgp": svgp_rec["launches"]["rbf_gram"],
         "launches_sparse": sparse_rec["launches"],
         "launches_classification": cls_rec["launches"],
@@ -4794,10 +5300,12 @@ def main() -> int:
         "launches_slice15": s15_rec["launches_rbf_gram"],
         "launches_state_space": ss_rec["launches_rbf_gram"],
         "launches_longtail": lt_rec["launches_rbf_gram"],
+        "launches_lfm_symbolic": lfm_rec["launches_rbf_gram"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
                            + sparse_rec["rbf_gram_checks"] + cls_rec["rbf_gram_checks"]
                            + multi_rec["rbf_gram_checks"] + latent_rec["rbf_gram_checks"]
                            + s15_rec["rbf_gram_checks"] + lt_rec["rbf_gram_checks"]
+                           + lfm_rec["rbf_gram_checks"]
                            if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
@@ -4807,6 +5315,7 @@ def main() -> int:
         "latent_shapes": latent_rec["rbf_gram_times"],
         "slice15_shapes": s15_rec["rbf_gram_times"],
         "longtail_shapes": lt_rec["rbf_gram_times"],
+        "lfm_symbolic_shapes": lfm_rec["rbf_gram_times"],
     }, {
         "name": "gram_matvec_fused", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",

@@ -3,12 +3,16 @@ from .basis_funcs import (BasisFuncKernel, ChangePointBasisFuncKernel, DomainKer
                           LinearSlopeBasisFuncKernel, LogisticBasisFuncKernel,
                           PolynomialBasisFuncKernel)
 from .coregionalize import Coregionalize, Hierarchical, IndependentOutputs
+from .eq_ode1 import EQ_ODE1
+from .eq_ode2 import EQ_ODE2
 from .integral import Integral, Integral_Limits, Multidimensional_Integral_Limits
 from .kern import Add, CombinationKernel, Kern, Prod
 from .linear import Linear, LinearFull, TruncLinear, TruncLinear_inf
 from .misc import MLP, Brownian, Poly, Spline
 from .multioutput_kern import DiffKern, MultioutputDerivativeKern, MultioutputKern
+from .ode_uy import ODE_UY, ODE_UYC, ODE_st, ODE_t
 from .periodic import PeriodicExponential, PeriodicMatern32, PeriodicMatern52, StdPeriodic
+from .symbolic import Symbolic
 from .symmetric import DEtime, GridRBF, SplitKern, Symmetric
 from .static import Bias, Fixed, Precomputed, Static, White, WhiteHeteroscedastic
 from .stationary import (OU, RBF, Cosine, Exponential, ExpQuad, ExpQuadCosine, Matern32,
@@ -45,4 +49,5 @@ __all__ = ["Kern", "CombinationKernel", "Add", "Prod", "Stationary", "RBF", "Exp
            "PolynomialBasisFuncKernel", "LinearSlopeBasisFuncKernel", "ChangePointBasisFuncKernel",
            "DomainKernel", "LogisticBasisFuncKernel", "Integral", "Integral_Limits",
            "Multidimensional_Integral_Limits", "Symmetric", "SplitKern", "DEtime", "GridRBF",
-           "DiffGenomeKern"]
+           "DiffGenomeKern", "EQ_ODE1", "EQ_ODE2", "ODE_UY", "ODE_UYC", "ODE_st",
+           "ODE_t", "Symbolic"]

@@ -6,7 +6,8 @@ from .families import (Binomial, Exponential, Gamma, LogGaussian, LogLogistic, P
 from .gaussian import Gaussian, HeteroscedasticGaussian
 from .likelihood import Likelihood
 from .mixed_noise import MixedNoise, MultioutputLikelihood
+from .symbolic import SymbolicLikelihood
 
 __all__ = ["link_functions", "Likelihood", "Gaussian", "HeteroscedasticGaussian", "Bernoulli",
            "Poisson", "Binomial", "Exponential", "Gamma", "StudentT", "Weibull", "LogLogistic",
-           "LogGaussian", "MixedNoise", "MultioutputLikelihood"]
+           "LogGaussian", "MixedNoise", "MultioutputLikelihood", "SymbolicLikelihood"]

@@ -9,6 +9,7 @@ from .gp_regression import GPRegression
 from .gp_var_gauss import GPVariationalGaussianApproximation
 from .gradient_checker import GradientChecker, HessianChecker, SkewChecker
 from .gplvm import BCGPLVM, GPLVM, MRD, BayesianGPLVM, DPBayesianGPLVM, SparseGPLVM
+from .ibp_lfm import IBPLFM
 from .multioutput_gp import MultioutputGP
 from .one_vs_all_classification import OneVsAllClassification, OneVsAllSparseClassification
 from .sparse_gp_classification import (SparseGPClassification,
@@ -31,4 +32,4 @@ __all__ = ["GPRegression", "GPHeteroscedasticRegression", "SparseGPRegression",
            "GPMultioutRegressionMD", "TPRegression", "StateSpace", "WarpedGP", "InputWarpedGP",
            "GPKroneckerGaussianRegression", "GPRegressionGrid",
            "GPVariationalGaussianApproximation", "GradientChecker", "HessianChecker",
-           "SkewChecker"]
+           "SkewChecker", "IBPLFM"]

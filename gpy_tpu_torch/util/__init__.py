@@ -1,4 +1,5 @@
-from . import choleskies, convert, initialization, linalg, multioutput, normalizer, pca
+from . import (choleskies, convert, functions, initialization, linalg, ln_diff_erfs, multioutput,
+               normalizer, pca, wofz)
 
 __all__ = ["linalg", "convert", "choleskies", "multioutput", "initialization", "normalizer",
-           "pca"]
+           "pca", "functions", "ln_diff_erfs", "wofz"]

@@ -277,8 +277,11 @@ def pdinv(A: torch.Tensor):
 def solve_lu_safe(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """General LU solve, gpy_tpu/util/linalg.py:72-79. The reference casts
     float64 to float32 there on a TPU (`_lu_dtype`), whose float64 LU fails
-    to compile; the card has a float64 LU, so nothing is cast."""
-    return torch.linalg.solve(A, b)
+    to compile; the card has a float64 LU, so nothing is cast. A singular A
+    gives inf or NaN, as the reference's jnp.linalg.solve does, for the
+    optimizers to back off from: torch.linalg.solve would raise, after
+    reading the LU's info back to the host."""
+    return torch.linalg.solve_ex(A, b)[0]
 
 
 def expm_safe(M: torch.Tensor) -> torch.Tensor:

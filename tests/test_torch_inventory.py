@@ -36,7 +36,8 @@ SURFACES = {
         "BasisFuncKernel", "LogisticBasisFuncKernel", "LinearSlopeBasisFuncKernel",
         "ChangePointBasisFuncKernel", "PolynomialBasisFuncKernel", "DomainKernel", "Symmetric",
         "SplitKern", "DEtime", "DiffGenomeKern", "GridRBF", "Integral", "Integral_Limits",
-        "Multidimensional_Integral_Limits"}),
+        "Multidimensional_Integral_Limits", "EQ_ODE1", "EQ_ODE2", "ODE_UY", "ODE_UYC", "ODE_st",
+        "ODE_t", "Symbolic"}),
     "GPY_LIKELIHOODS": ("gpy_tpu_torch.likelihoods", {
         "Gaussian", "HeteroscedasticGaussian", "Bernoulli", "Binomial", "Poisson", "Exponential",
         "Gamma", "StudentT", "Weibull", "LogLogistic", "LogGaussian", "MixedNoise",
@@ -54,7 +55,7 @@ SURFACES = {
         "DPBayesianGPLVM", "GPMultioutRegression", "GPMultioutRegressionMD", "TPRegression",
         "StateSpace", "WarpedGP", "InputWarpedGP", "GPKroneckerGaussianRegression",
         "GPRegressionGrid", "GPVariationalGaussianApproximation", "GradientChecker",
-        "HessianChecker", "SkewChecker"}),
+        "HessianChecker", "SkewChecker", "IBPLFM"}),
     "GPY_INFERENCE": ("gpy_tpu_torch.inference", {
         "ExactGaussianInference", "VarDTC", "VarDTC_minibatch", "VarDTCMissingData", "FITC",
         "DTC", "PEP", "SVGPInference", "Laplace", "LaplaceBlock", "EP", "EPDTC",
