@@ -277,6 +277,34 @@ Phases, each printing one JSON line:
                 symbolic Student-t (nu = 4) under Laplace against
                 StudentT(deg_free=4) in float64, float32 against float64,
                 optimize(max_iters=20) (1 B1 launch an NLML+gradient).
+ 34. surface  -- the host-side surface on the card: every function of
+                gpy_tpu_torch.examples at its own defaults with
+                optimize=True, in the package's default dtype (float64),
+                the cuts of EXAMPLE_CUTS and EXAMPLE_MAX_ITERS listed in
+                the record, plus
+                large_scale_iterative_regression(fused=True): seconds,
+                the objective at the end and the B1, B5 and B6 launches
+                of each (B5 and B6 > 0 on the two fused examples); B1
+                against its twin at every (N, M, D, dtype) the examples
+                launched it with, B5 and B6 at matrix_free_exact_gp's
+                N=3000, D=2, R=9; save_model and gpy_tpu_torch.load of the
+                dense slice (float32), big_data_svgp's fitted SVGP
+                (N=200,000), a float64 EP classifier on the banana set
+                (N=2048, converged sites), bench's MultioutputGP with a
+                shared kernel (float32), tied_lengthscales' model and a
+                GPRegression over a symbolic kernel: seconds to save and
+                load, file MB, NLML, gradient and predict at 2048 points
+                bit-equal after the load, no EP sweep after the load, and
+                a load on the CPU against the card (the dense slice
+                without its gradient); plot_fit and
+                plot_density of a float32 GPRegression at N=2048
+                (resolution 200) and plot_latent and plot_magnification
+                of config 5's BayesianGPLVM (N=1000, Q=10, M=30) through
+                the recording backend, ms each and every array against
+                the float64 CPU model; profiling.trace around five
+                NLML+gradients of the dense slice (the Chrome trace must
+                name B1's kernel), StepTimer's median against the step's
+                CUDA-event time, and profile_objective's summary.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -5172,6 +5200,478 @@ def run_svgp(rg, smi):
     return rec
 
 
+# --- the surface: save and load, the examples, plots and the profiler ------
+
+# each example function of gpy_tpu_torch.examples, at its own defaults with
+# optimize=True on the card, in the package's default dtype (float64); the
+# keyword cuts that keep the phase near its budget are listed in
+# EXAMPLE_CUTS and in the record: the state-space examples' sequential
+# Kalman filter takes ~0.37 ms a time step on the host, so their fits took
+# 6.8, 12.3 and 73.9 s uncut (N=300, 200, 2000 by 100 iterations), and
+# toy_heaviside's EP fit (60 sweeps an evaluation) 10.1 s at 100 and 10.2
+# s at 20 iterations (NVIDIA H100 80GB HBM3, 700.00 W). big_data_svgp
+# (N=200,000, 300 steps), matrix_free_exact_gp (n=3000, fused) and
+# large_scale_iterative_regression (N=20,000) run uncut; the last runs twice, at its default (the
+# materialized Gram below 50,000 rows: B1) and with fused=True (B5 and B6).
+# Every other example whose max_iters defaults above EXAMPLE_MAX_ITERS runs
+# at EXAMPLE_MAX_ITERS: at their defaults the examples took 92 s of a
+# 120.7 s phase on that card, over its ~90 s budget.
+EXAMPLE_CUTS = {"state_space.matern_kalman_1d": {"max_iters": 5},
+                "state_space.sum_kernel_kalman": {"max_iters": 10},
+                "state_space.state_space_example": {"n": 500, "max_iters": 10},
+                "classification.toy_heaviside": {"max_iters": 5}}
+EXAMPLE_MAX_ITERS = 50
+EXAMPLE_EXTRA = [("regression", "large_scale_iterative_regression", {"fused": True})]
+FUSED_EXAMPLES = ("advanced.matrix_free_exact_gp",
+                  "regression.large_scale_iterative_regression[fused=True]")
+# a loaded model read on the CPU against the card: the float32 models within
+# the dense slice's float32-vs-float64 limits, the float64 models within
+# LFM_EXACT_TOL's cpu_vs_card limit, predict in float64 ~10x the fitted
+# SVGP's reading (4.4e-10 on an H100: its Kmm's factor). NLML
+# relative, predict as max |diff| / max |ref|, the gradient as max |diff| /
+# max(max |ref|, 1): at a fitted model's optimum the gradient is rounding
+# noise, which the two devices round differently
+SAVE_CPU_TOL = {"float32": {"nlml": 5e-5, "grad": 1e-4, "predict": 1e-4},
+                "float64": {"nlml": 1e-10, "grad": 1e-10, "predict": 5e-9}}
+# plot arrays recorded on the card in float32 against the same model's on
+# the CPU in float64 (max |diff| / max |ref| per array): ~10x the readings
+# (on an H100: fit 4.1e-5, density 2.1e-5, latent 1.1e-7,
+# magnification 9.4e-4, whose Jacobian differences float32 predictions)
+PLOT_F32_TOL = {"fit": 4e-4, "density": 2e-4, "latent": 1.2e-6, "magnification": 1e-2}
+SURF_PLOT_N, SURF_PLOT_RES = 2048, 200
+SURF_N_PRED = 2048
+SURF_TRACE_STEPS = 5
+
+
+def _example_functions():
+    import inspect
+
+    import gpy_tpu_torch.examples as ex
+
+    out = []
+    for modname in ex.__all__:
+        mod = getattr(ex, modname)
+        for name, fn in inspect.getmembers(mod, inspect.isfunction):
+            if not name.startswith("_") and fn.__module__ == mod.__name__:
+                out.append((modname, name, {}))
+    return out + EXAMPLE_EXTRA
+
+
+def _returned_models(out):
+    if hasattr(out, "log_likelihood"):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [m for o in out for m in _returned_models(o)]
+    return []
+
+
+class _B1Shapes:
+    """Records the (N, M, D, dtype) of every B1 launch while installed, by
+    wrapping the module's launcher (its own counter still counts)."""
+
+    def __init__(self, rg):
+        self.rg, self.real, self.shapes = rg, rg.rbf_gram_cuda, set()
+
+    def __enter__(self):
+        def launch(Xs, X2s, v):
+            self.shapes.add((Xs.shape[0], X2s.shape[0], Xs.shape[1],
+                             str(Xs.dtype).replace("torch.", "")))
+            return self.real(Xs, X2s, v)
+
+        self.rg.rbf_gram_cuda = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.rg.rbf_gram_cuda = self.real
+
+
+def surface_examples(rg):
+    """Every example on the card with the counters read around it."""
+    import contextlib
+    import io
+    import inspect
+
+    import numpy as np
+    import torch
+
+    import gpy_tpu_torch.examples as ex
+
+    recs, keep = [], {}
+    with _B1Shapes(rg) as shapes:
+        for modname, name, extra in _example_functions():
+            fn = getattr(getattr(ex, modname), name)
+            params = inspect.signature(fn).parameters
+            cuts = dict(EXAMPLE_CUTS.get(f"{modname}.{name}", {}))
+            if ("max_iters" in params and "max_iters" not in cuts
+                    and params["max_iters"].default > EXAMPLE_MAX_ITERS):
+                cuts["max_iters"] = EXAMPLE_MAX_ITERS
+            kw = dict(extra, **cuts)
+            if "device" in params:
+                kw["device"] = "cuda"
+            if "optimize" in params:
+                kw["optimize"] = True
+            label = f"{modname}.{name}" + "".join(f"[{k}={v}]" for k, v in extra.items())
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = fn(**kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = counters()
+            models = _returned_models(out)
+            objs = [m.objective_function().item() for m in models]
+            rec = {"example": label, "seconds": secs, "objective_end": objs, "cuts": cuts,
+                   "launches": {k: launches[k] for k in ("rbf_gram", "gram_matvec_fused",
+                                                         "gram_moments")}}
+            if name == "boston_example":
+                rec["rmse"] = {k: float(np.mean(v)) for k, v in out.items()}
+            elif name == "stick_play":
+                rec["data_shape"] = list(np.shape(out))
+            else:
+                rec["models"] = len(models)
+            recs.append(rec)
+            if name in ("big_data_svgp", "tied_lengthscales",
+                        "multioutput_gp_with_derivative_observations"):
+                keep[name] = models[0]
+            del out, models
+    torch.cuda.empty_cache()
+    return recs, sorted(shapes.shapes), keep
+
+
+def _readings(m, Xs, Y_metadata=None):
+    """(objective, flat gradient, predictive mean, variance) as numpy."""
+    import numpy as np
+
+    f, g = m._objective_and_grad(m.optimizer_array)
+    mu, var = m.predict(Xs, Y_metadata=Y_metadata)
+    return np.float64(f), g, mu, var
+
+
+def _rel_max(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def surface_save_load(models):
+    """Each (name, model, Xs, Y_metadata, cpu_grad) through save_model and
+    gpy_tpu_torch.load: bit-equal on the card, within SAVE_CPU_TOL on the CPU
+    (the gradient only where cpu_grad: the dense slice's backward through an
+    8192-row float32 Cholesky took ~7 of the CPU load's 10.3 s); the EP
+    model predicts from its stored sites."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import gpy_tpu_torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_surface_")
+    out = {}
+    try:
+        for name, m, Xs, md, cpu_grad in models:
+            before = _readings(m, Xs, md)
+            again = _readings(m, Xs, md)
+            repeatable = all(np.array_equal(a, b) for a, b in zip(before, again))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = m.save_model(os.path.join(tmp, name))
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            m2 = gpy_tpu_torch.load(path)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            ep = getattr(m2, "inference_method", None)
+            if hasattr(ep, "_site_cache"):
+                ep.last_sweeps = None
+            after = _readings(m2, Xs, md)
+            sweeps = None if not hasattr(ep, "_site_cache") else ep.last_sweeps
+            bit_equal = [bool(np.array_equal(a, b)) for a, b in zip(after, before)]
+            on_card = all(p.is_cuda for p in m2.parameters())
+            del m2
+            mc = gpy_tpu_torch.load(path, device="cpu")
+            t0 = time.perf_counter()
+            if cpu_grad:
+                cpu = _readings(mc, Xs, md)
+            else:
+                with torch.no_grad():
+                    f_cpu = mc.objective_function().item()
+                cpu = (np.float64(f_cpu), None, *mc.predict(Xs, Y_metadata=md))
+            t_cpu = time.perf_counter() - t0
+            dt = str(m.dtype if hasattr(m, "dtype") else m._first_param().dtype)
+            tol = dict(SAVE_CPU_TOL[dt.replace("torch.", "")])
+            gscale = max(float(np.max(np.abs(before[1]))), 1.0)
+            cpu_rel = {"nlml": _rel_max(cpu[0], before[0]),
+                       "predict": max(_rel_max(cpu[2], before[2]), _rel_max(cpu[3], before[3]))}
+            if cpu_grad:
+                cpu_rel["grad"] = float(np.max(np.abs(cpu[1] - before[1]))) / gscale
+            else:
+                del tol["grad"]
+            del mc
+            out[name] = {"dtype": dt, "file_mb": os.path.getsize(path) / 2**20,
+                         "save_seconds": t_save, "load_seconds": t_load,
+                         "original_repeatable": repeatable,
+                         "bit_equal_nlml_grad_mean_var": bit_equal,
+                         "loaded_on_card": on_card, "ep_sweeps_after_load": sweeps,
+                         "max_abs_grad": gscale, "cpu_vs_card_rel": cpu_rel,
+                         "cpu_limits": tol, "cpu_seconds": t_cpu}
+            os.remove(path)
+    finally:
+        shutil.rmtree(tmp)
+    return out
+
+
+def _flat_plot(canvas):
+    import numpy as np
+
+    return {f"{i:02d}_{name}_{k}": v for i, (name, d) in enumerate(canvas)
+            for k, v in d.items() if isinstance(v, np.ndarray) and v.dtype.kind in "fiub"}
+
+
+def surface_plots():
+    """plot_fit and plot_density of a float32 GPRegression at N=2048 and
+    plot_latent and plot_magnification of config 5's BayesianGPLVM through
+    the recording backend: ms each, and each array against the float64 CPU
+    model at the card model's parameters."""
+    import numpy as np
+    import torch
+
+    import gpy_tpu_torch.plotting as tplt
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.models import BayesianGPLVM, GPRegression
+    from gpy_tpu_torch.plotting import gpy_plot as gp
+    from gpy_tpu_torch.util.convert import load_raw_params, raw_params_numpy
+
+    rng = np.random.default_rng(11)
+    X = np.sort(rng.random((SURF_PLOT_N, 1)) * 10.0, axis=0).astype(np.float32)
+    Y = (np.sin(X) + 0.2 * rng.standard_normal(X.shape)).astype(np.float32)
+    Yl = lv_data()
+
+    def models(dev, dt, like=None):
+        reg = GPRegression(X, Y, RBF(1, device=dev, dtype=dt), noise_var=0.04, device=dev,
+                           dtype=dt)
+        lvm = BayesianGPLVM(Yl, LV_Q, num_inducing=LV_M, device=dev, dtype=dt)
+        if like is not None:
+            for m, ref in zip((reg, lvm), like):
+                load_raw_params(m, raw_params_numpy(ref))
+        return reg, lvm
+
+    def draw(reg, lvm, timed):
+        out, ms = {}, {}
+        for name, fn in (("fit", lambda: gp.plot_fit(reg, resolution=SURF_PLOT_RES)),
+                         ("density", lambda: gp.plot_density(reg, resolution=SURF_PLOT_RES)),
+                         ("latent", lambda: gp.plot_latent(lvm)),
+                         ("magnification", lambda: gp.plot_magnification(lvm))):
+            if timed:
+                fn()  # the posterior and first-use allocations, untimed
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = _flat_plot(fn())
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        return out, ms
+
+    prev = tplt._library_name[0]
+    tplt.change_plotting_library("recording")
+    try:
+        card = models("cuda", torch.float32)
+        got, ms = draw(*card, timed=True)
+        want, _ = draw(*models("cpu", torch.float64, like=card), timed=False)
+    finally:
+        tplt.change_plotting_library(prev)
+    rel = {}
+    for plot, arrays in want.items():
+        check(set(got[plot]) == set(arrays), f"surface plot {plot}: other primitives on the card")
+        rel[plot] = max(_rel_max(got[plot][k], arrays[k]) for k in arrays)
+    return {"ms": ms, "rel_vs_cpu_f64": rel, "limit": PLOT_F32_TOL, "N_fit": SURF_PLOT_N,
+            "resolution_fit": SURF_PLOT_RES, "latent": {"N": LV_N, "Q": LV_Q, "M": LV_M,
+                                                        "D": LV_D, "resolution": 60}}
+
+
+def surface_profile(m):
+    """profiling.trace around NLML+gradient steps (the Chrome trace must name
+    B1's kernel); StepTimer's median of that step against its CUDA-event
+    device time; profile_objective's summary."""
+    import glob
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gpy_tpu_torch.util import profiling
+
+    params = m._free_parameters()
+
+    def step():
+        f = m.objective_function()
+        return torch.autograd.grad(f, params)
+
+    step()
+    torch.cuda.synchronize()
+    # late in a long process the profiler drops a session's first device
+    # events (device_ms): SURF_TRACE_STEPS steps a session, up to five
+    # sessions until the trace holds a B1 launch
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        for session in range(1, 6):
+            with profiling.trace(logdir):
+                for _ in range(SURF_TRACE_STEPS):
+                    with profiling.annotate("nlml_and_grad"):
+                        g = step()
+                torch.cuda.synchronize()
+            path = max(glob.glob(os.path.join(logdir, "*.json")), key=os.path.getmtime)
+            events = _json.load(open(path))["traceEvents"]
+            names = {e.get("name", "") for e in events}
+            b1_events = sum("rbf_gram_kernel" in e.get("name", "") for e in events
+                            if e.get("cat") == "kernel")
+            if b1_events:
+                break
+        trace_mb = os.path.getsize(path) / 2**20
+    finally:
+        shutil.rmtree(logdir)
+    b1_in_trace = b1_events > 0
+    timer = profiling.StepTimer()
+    event_ms = []
+    for _ in range(7):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with timer.step() as t:
+            start.record()
+            g = step()
+            end.record()
+            t.sync_target = g[0]
+        event_ms.append(start.elapsed_time(end))
+    event_ms.sort()
+    summary = timer.summary()
+    prof = profiling.profile_objective(m, n_calls=5)
+    return {"b1_kernel_in_trace": b1_in_trace, "annotation_in_trace": "nlml_and_grad" in names,
+            "trace_sessions": session, "steps_traced": SURF_TRACE_STEPS,
+            "b1_kernel_events_in_trace": b1_events, "trace_mb": trace_mb, "step_timer": summary, "cuda_event_ms_median": event_ms[3],
+            "profile_objective": prof}
+
+
+def surface_limits(rec):
+    """The surface phase's checks, applied after its record is printed."""
+    for r in rec["examples"]:
+        check(all(math.isfinite(v) for v in r["objective_end"]),
+              f"surface {r['example']}: objective {r['objective_end']}")
+        check(r["example"].endswith(("boston_example", "stick_play")) or r.get("models", 0) > 0,
+              f"surface {r['example']}: returned no model")
+    for label in FUSED_EXAMPLES:
+        r = next(r for r in rec["examples"] if r["example"] == label)
+        check(r["launches"]["gram_matvec_fused"] > 0 and r["launches"]["gram_moments"] > 0,
+              f"surface {label}: B5/B6 launches {r['launches']}")
+    for name, r in rec["save_load"].items():
+        check(r["loaded_on_card"], f"surface save/load {name}: loaded off the card")
+        check(all(r["bit_equal_nlml_grad_mean_var"]),
+              f"surface save/load {name}: not bit-equal {r['bit_equal_nlml_grad_mean_var']} "
+              f"(original repeatable: {r['original_repeatable']})")
+        check(all(r["cpu_vs_card_rel"][k] <= r["cpu_limits"][k] for k in r["cpu_limits"]),
+              f"surface save/load {name}: the CPU load against the card {r['cpu_vs_card_rel']}")
+    sweeps = rec["save_load"]["ep_banana_f64"]["ep_sweeps_after_load"]
+    check(sweeps is None, f"surface save/load: the loaded EP model ran {sweeps} sweeps")
+    rel = rec["plots"]["rel_vs_cpu_f64"]
+    check(all(v <= PLOT_F32_TOL[k] for k, v in rel.items()),
+          f"surface plots: float32 card against float64 CPU {rel} > {PLOT_F32_TOL}")
+    prof = rec["profiling"]
+    check(prof["b1_kernel_in_trace"], "surface profile: the Chrome trace names no rbf_gram_kernel")
+    check(prof["step_timer"]["p50_ms"] >= prof["cuda_event_ms_median"],
+          f"surface profile: StepTimer median {prof['step_timer']['p50_ms']} ms < CUDA-event "
+          f"{prof['cuda_event_ms_median']} ms: the timer did not wait for the card")
+
+
+def run_surface(rg, fm, smi):
+    """The surface phase: the examples, B1 at their shapes and B5/B6 at
+    matrix_free_exact_gp's, save and load, plots and the profiler."""
+    import numpy as np
+    import torch
+
+    from gpy_tpu_torch.kern import RBF, Symbolic
+    from gpy_tpu_torch.models import GPRegression
+
+    t_start = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    examples, shapes, keep = surface_examples(rg)
+    parts["examples"] = time.perf_counter() - t0
+    totals = {k: sum(r["launches"][k] for r in examples)
+              for k in ("rbf_gram", "gram_matvec_fused", "gram_moments")}
+
+    t0 = time.perf_counter()
+    dt = {"float32": torch.float32, "float64": torch.float64}
+    b1_checks = [check_rbf_gram(rg, N, M, D, dt[d]) for N, M, D, d in shapes]
+    torch.cuda.empty_cache()
+    b5 = check_fused_matvec(fm, FAMILIES["RBF"], "f32x3", ("matrix_free_exact_gp", 3000, None,
+                                                           2, 9))
+    b6 = check_fused_moments(fm, FAMILIES["RBF"], 2, N=3000, R=9)
+    parts["kernel_checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    X, Y, _ = slice_data()
+    dense = build_model(X, Y, torch.float32)
+    Xd = rng.random((SURF_N_PRED, SLICE_D)).astype(np.float32) * 4.0
+    Xb, Yb = banana(np.random.default_rng(0), CLS_N)
+    ep = cls_model(Xb, Yb, torch.float64, "ep")
+    ep.log_likelihood()  # converged sites
+    Xt = np.linspace(-1.0, 5.0, SURF_N_PRED).reshape(-1, 1)
+    import sympy
+
+    x, z, v, ell = sympy.symbols("x z v ell")
+    Xsym = np.sort(rng.random((500, 1)) * 6.0, axis=0)
+    sym = GPRegression(Xsym, np.sin(Xsym) + 0.1 * rng.standard_normal(Xsym.shape),
+                       Symbolic(1, k=v * sympy.exp(-(x - z) ** 2 / (2 * ell ** 2)),
+                                parameters={"v": 1.0, "ell": 0.7}, device="cuda"),
+                       device="cuda")
+    svgp = keep["big_data_svgp"]
+    mogp = mo_model(torch.float32)
+    mo_md = {"output_index": np.arange(SURF_N_PRED) % 2}
+    save = surface_save_load([
+        ("dense_slice_f32", dense, Xd, None, False),
+        ("big_data_svgp", svgp, rng.random((SURF_N_PRED, 4)) * 4.0, None, True),
+        ("ep_banana_f64", ep, rng.random((SURF_N_PRED, 2)) * 4.0 - 1.0, None, True),
+        ("multioutput_shared_kernel_f32", mogp,
+         np.hstack([np.linspace(0, 4, SURF_N_PRED)[:, None], mo_md["output_index"][:, None]]),
+         mo_md, True),
+        ("tied_lengthscales", keep["tied_lengthscales"], Xt * 1.6, None, True),
+        ("symbolic_kernel", sym, Xt, None, True),
+    ])
+    parts["save_load"] = time.perf_counter() - t0
+    del ep, sym, svgp, mogp, keep
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    plots = surface_plots()
+    parts["plots"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_counters()
+    prof = surface_profile(dense)
+    parts["profile"] = time.perf_counter() - t0
+    del dense
+    torch.cuda.empty_cache()
+
+    rec = {"phase": "surface", "examples_dtype": "float64 (the package default)",
+           "examples": examples, "example_launches": totals,
+           "rbf_gram_checks": b1_checks, "b1_shapes": [list(s) for s in shapes],
+           "gram_matvec_fused_check": {"shape": "N=3000, D=2, R=9", "rel_err": b5[0],
+                                       "max_abs_err": b5[1], "tol": FUSED_FWD_TOL},
+           "gram_moments_check": {"shape": "N=3000, D=2, R=9", "rel_err": b6,
+                                  "tol": FUSED_BWD_TOL},
+           "save_load": save, "plots": plots, "profiling": prof,
+           "seconds": time.perf_counter() - t_start, "part_seconds": parts, "nvidia_smi": smi}
+    emit(rec)  # before the limits below, so that a failing run still shows its readings
+    surface_limits(rec)
+    return {"launches_rbf_gram": totals["rbf_gram"],
+            "launches_gram_matvec_fused": totals["gram_matvec_fused"],
+            "launches_gram_moments": totals["gram_moments"], "rbf_gram_checks": b1_checks,
+            "b5_max_abs_err": b5[1]}
+
+
 def main() -> int:
     import torch
 
@@ -5273,6 +5773,8 @@ def main() -> int:
     lt_rec = run_longtail(rg, smi)
     # the latent-force models and the symbolic kernel and likelihood
     lfm_rec = run_lfm_symbolic(rg, smi)
+    # the surface: the examples, save and load, plots and the profiler
+    surf_rec = run_surface(rg, fm, smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -5289,7 +5791,7 @@ def main() -> int:
         + multi_rec["launches_multioutput"] + latent_rec["launches_gplvm"]
         + latent_rec["launches_sparse_hmc"] + s15_rec["launches_rbf_gram"]
         + ss_rec["launches_rbf_gram"] + lt_rec["launches_rbf_gram"]
-        + lfm_rec["launches_rbf_gram"],
+        + lfm_rec["launches_rbf_gram"] + surf_rec["launches_rbf_gram"],
         "launches_svgp": svgp_rec["launches"]["rbf_gram"],
         "launches_sparse": sparse_rec["launches"],
         "launches_classification": cls_rec["launches"],
@@ -5301,11 +5803,12 @@ def main() -> int:
         "launches_state_space": ss_rec["launches_rbf_gram"],
         "launches_longtail": lt_rec["launches_rbf_gram"],
         "launches_lfm_symbolic": lfm_rec["launches_rbf_gram"],
+        "launches_surface": surf_rec["launches_rbf_gram"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
                            + sparse_rec["rbf_gram_checks"] + cls_rec["rbf_gram_checks"]
                            + multi_rec["rbf_gram_checks"] + latent_rec["rbf_gram_checks"]
                            + s15_rec["rbf_gram_checks"] + lt_rec["rbf_gram_checks"]
-                           + lfm_rec["rbf_gram_checks"]
+                           + lfm_rec["rbf_gram_checks"] + surf_rec["rbf_gram_checks"]
                            if c["dtype"] == "float32"),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
@@ -5320,8 +5823,12 @@ def main() -> int:
         "name": "gram_matvec_fused", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
         "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:71",
-        "launches": iter_rec["fused"]["launches"]["gram_matvec_fused"],
-        "max_abs_err": max([fused_err] + [t["max_abs_err"] for t in mv_all]),
+        "launches": iter_rec["fused"]["launches"]["gram_matvec_fused"]
+        + surf_rec["launches_gram_matvec_fused"],
+        "launches_iterative": iter_rec["fused"]["launches"]["gram_matvec_fused"],
+        "launches_surface": surf_rec["launches_gram_matvec_fused"],
+        "max_abs_err": max([fused_err, surf_rec["b5_max_abs_err"]]
+                           + [t["max_abs_err"] for t in mv_all]),
         "main_path_rel_err": {f"R{t['R']}": t["rel_err"] for t in mv_all},
         "main_path_rel_tol": {f"R{t['R']}": t["rel_tol"] for t in mv_all},
         "shape": f"N={ITER_N}, D={ITER_D}, R=9", "ms": mv["ms"],
@@ -5333,7 +5840,10 @@ def main() -> int:
         "name": "gram_moments", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
         "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:269",
-        "launches": iter_rec["fused"]["launches"]["gram_moments"],
+        "launches": iter_rec["fused"]["launches"]["gram_moments"]
+        + surf_rec["launches_gram_moments"],
+        "launches_iterative": iter_rec["fused"]["launches"]["gram_moments"],
+        "launches_surface": surf_rec["launches_gram_moments"],
         "max_abs_err": mom["max_abs_err_vs_f64_plain"], "main_path_rel_err": mom["rel_err"],
         "main_path_rel_tol": FUSED_BWD_TOL_50K, "shape": f"N={ITER_N}, D={ITER_D}, R=9",
         "ms": mom["ms"], "reduce_ms": mom["reduce_ms"], "event_ms": mom["event_ms"],

@@ -438,3 +438,34 @@ class Model(Module):
             for i in range(x.size):
                 print(f"{paths[i]:<40} {g[i]:>12.6f} {num[i]:>12.6f} {ratio[i]:>10.2e}")
         return ok
+
+    # --- serialization surface (GPy: m.save_model / m.to_dict / pickle) ----
+    def to_dict(self) -> dict:
+        from ..util.serialization import to_dict
+
+        return to_dict(self)
+
+    @staticmethod
+    def from_dict(d, device=None):
+        """The model `d` describes, on `device` ("cuda" unless the caller
+        passes "cpu")."""
+        from ..util.serialization import from_dict
+
+        return from_dict(d, device=device)
+
+    def save_model(self, output_filename, compress=True, save_data=True):
+        """gzip JSON of the whole model (util/serialization.py); returns the
+        path written. The data is always saved, as in the reference."""
+        from ..util.serialization import save_model
+
+        return save_model(self, output_filename, compress=compress)
+
+    def pickle(self, path):
+        """GPy: m.pickle(path) -- a gzip pickle of the model, read back with
+        pickle.load on the device it was saved from."""
+        import gzip
+        import pickle
+
+        with gzip.open(path, "wb") as f:
+            pickle.dump(self, f)
+        return path

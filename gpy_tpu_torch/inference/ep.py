@@ -68,9 +68,10 @@ class _EPSites(LatentFunctionInference):
         self.last_sweeps = self.last_change = None
 
     def _rebuild_after_load(self):
-        """A loaded model reuses its stored converged sites for predict; the
-        next optimize() converges them again (GPy's `loading` flag).
-        Serialization itself waits (ROADMAP A17)."""
+        """Called by util/serialization.py when a saved model is loaded: the
+        model predicts and evaluates from its stored converged sites
+        without a new sweep until the next optimize() converges them again
+        (GPy's `loading` flag)."""
         self._loading = self._site_cache is not None
 
     def on_optimization_start(self):

@@ -5,11 +5,13 @@ state-space model's C++ engine) with g++, into a shared library with a
 plain C interface in gpy_tpu_torch/_build/, which ctypes loads. Nothing is
 built on import: only a wrapper that launches a kernel, or runs the host
 engine, calls `load`. A library older than its source is rebuilt; a missing
-compiler or a failed build raises.
+compiler or a failed build raises. Each build and each first load is logged
+at INFO on this module's logger (util/diagnostics.log_compiles).
 """
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import shutil
 import subprocess
@@ -26,6 +28,7 @@ GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _libs: dict = {}
 _lock = threading.Lock()
+log = logging.getLogger(__name__)
 
 
 def _nvcc() -> str:
@@ -70,6 +73,7 @@ def build(name: str) -> str:
     if r.returncode != 0:
         raise RuntimeError(f"{os.path.basename(cmd[0])} failed on {src}:\n{r.stdout}{r.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees the old or the new file
+    log.info("built %s from %s", so, src)
     return r.stdout + r.stderr
 
 
@@ -83,4 +87,5 @@ def load(name: str) -> ctypes.CDLL:
             if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
                 build(name)
             lib = _libs[name] = ctypes.CDLL(so)
+            log.info("loaded %s", so)
         return lib

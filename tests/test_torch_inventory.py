@@ -1,9 +1,11 @@
 """Inventory of the port: the reference's public names (the lists of
-tests/test_inventory.py) looked up in gpy_tpu_torch.
+tests/test_inventory.py) looked up in gpy_tpu_torch, and the module map:
+every module of gpy_tpu/ and its counterpart in gpy_tpu_torch/.
 
 PORTED lists the names the port has. Every other name is an expected
 failure (strict): the count of passes is the progress of the port, and a
 name ported without being added to PORTED fails here as an unexpected pass.
+The module map has one strict expected failure, parallel/ (ROADMAP A16).
 """
 import importlib
 import importlib.util
@@ -95,3 +97,53 @@ def test_port_names_beyond_the_reference_lists():
                                               block_chol, block_chol_inv, rec_block_chol_inv)
     from gpy_tpu_torch.ops.blocked_linalg import rec_chol_inv, tri_inv_doubling  # noqa
     from gpy_tpu_torch.ops.psi2 import rbf_psi2_weighted, ss_rbf_psi2_weighted  # noqa
+
+
+# --- the module map: gpy_tpu/<path> -> gpy_tpu_torch/<path> -----------------
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# reference modules whose counterpart has another name, each with its reason
+ELSEWHERE = {
+    "ops/pallas_gram.py": ("csrc/rbf_gram.cu", "its Pallas kernel B1 is a CUDA kernel"),
+    "ops/pallas_gram_matvec.py": ("csrc/gram_matvec_fused.cu",
+                                  "its Pallas kernels B5 and B6 are CUDA kernels"),
+    "ops/pallas_chol.py": ("csrc/block_chol.cu", "its Pallas kernels B2-B4 are CUDA kernels"),
+    "ops/pallas_psi.py": ("ops/psi2.py", "it holds no Pallas kernel: a blocked psi2 scan"),
+    "native/__init__.py": ("ops/kalman_cpp.py", "the C++ Kalman engine's loader "
+                                                "(csrc/kalman.cpp)"),
+}
+# reference modules with no counterpart on purpose
+NOT_NEEDED = {"util/cplx.py": "torch has native complex dtypes (ROADMAP A17)"}
+STILL_TO_PORT = {"parallel/__init__.py": "ROADMAP A16: sharding over several cards"}
+
+
+def _reference_modules():
+    ref = os.path.join(_ROOT, "gpy_tpu")
+    for d, _, files in os.walk(ref):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(d, f), ref).replace(os.sep, "/")
+
+
+def _module_cases():
+    for rel in sorted(_reference_modules()):
+        marks = (pytest.mark.xfail(strict=True, reason=STILL_TO_PORT[rel])
+                 if rel in STILL_TO_PORT else ())
+        yield pytest.param(rel, marks=marks, id=rel)
+
+
+@pytest.mark.parametrize("rel", list(_module_cases()))
+def test_module_has_a_counterpart(rel):
+    if rel in NOT_NEEDED:
+        assert hasattr(__import__("torch"), "complex128"), NOT_NEEDED[rel]
+        return
+    target = ELSEWHERE.get(rel, (rel, None))[0]
+    assert os.path.exists(os.path.join(_ROOT, "gpy_tpu_torch", target)), (
+        f"gpy_tpu/{rel} has no counterpart gpy_tpu_torch/{target}")
+    if target.endswith(".py"):
+        name = "gpy_tpu_torch." + target[:-3].replace("/", ".").removesuffix(".__init__")
+        importlib.import_module(name)
+
+
+def test_module_map_exemptions_are_reference_modules():
+    refs = set(_reference_modules())
+    assert set(ELSEWHERE) | set(NOT_NEEDED) | set(STILL_TO_PORT) <= refs
