@@ -305,6 +305,26 @@ Phases, each printing one JSON line:
                 NLML+gradients of the dense slice (the Chrome trace must
                 name B1's kernel), StepTimer's median against the step's
                 CUDA-event time, and profile_objective's summary.
+ 35. parallel -- sharding (gpy_tpu_torch.parallel). (a) On a 1-rank NCCL
+                make_mesh() over cuda:0, float32: sharded_svgp_train_step at
+                the svgp phase's shape (N=100,000, M=512, D=8, batches of
+                B=4096 rows), plain and whitened, 20 steps against the
+                serial Adam step from the same raw start;
+                sharded_iterative_nlml_grad(fused=True) at the iterative
+                phase's N=50,000 against the fused model at the same
+                probes; sharded_vardtc_elbo_and_grad at N=50,000, M=512
+                against the serial bound's float64 twin; HMC.sample(mesh=)
+                with 16 chains and optimize_restarts(parallel=True, mesh=)
+                with 16 restarts at the hmc phase's data against the
+                unsharded calls. Each: ms a step or evaluation beside the
+                serial path's, the collectives and their bytes, B1, B5 and
+                B2/B3 launches read around it, NCCL's kernels and device ms
+                from the profiler. B5 at the slabs (N/k, N), k = 1 and 4,
+                against its twin. (b) 4 spawned gloo ranks sharing cuda:0,
+                float64, at tests/test_torch_parallel.py's shapes x 8: every
+                sharded program on the 1-D and the 2 x 2 mesh against the
+                serial path on the card (rel 1e-10), every rank's exit code
+                checked.
 Then the {"kernels": [...]} line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failed check raises and the script exits
 non-zero without the last line; so does a run without a CUDA device.
@@ -5672,6 +5692,597 @@ def run_surface(rg, fm, smi):
             "b5_max_abs_err": b5[1]}
 
 
+# --- A16: sharding over a mesh (gpy_tpu_torch.parallel) ------------------------
+
+# (a) runs on a 1-rank NCCL mesh over cuda:0 at full width, float32; (b) in
+# PAR_RANKS spawned gloo ranks sharing cuda:0, float64, at the CPU tests'
+# shapes (tests/test_torch_parallel.py) x PAR_SCALE
+PAR_STEPS = 20
+# the sharded SVGP step's ELBO trajectory against the serial step's from the
+# same raw start, float32 (one rank: the all_reduce adds nothing, the two
+# paths round differently)
+PAR_SVGP_REL_TOL = 1e-4
+PAR_HMC_CHAINS, PAR_HMC_SAMPLES = 16, 10
+PAR_RESTARTS, PAR_RESTART_ITERS = 16, 50
+PAR_RANKS, PAR_SCALE = 4, 8
+# (b): every sharded value and gradient against the serial path on the card
+PAR_RANK_TOL = 1e-10
+PAR_RANK_TIMEOUT_S = 300
+
+
+def par_collectives():
+    from gpy_tpu_torch.parallel import mesh as pm
+
+    return dict(pm.counts)
+
+
+def par_profile(fn):
+    """Device kernels of one call of fn by torch.profiler: NCCL's (names
+    with "nccl"), their count and device ms, and every kernel's ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in rows if "nccl" in e.key.lower()]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "nccl_kernels": sum(e.count for e in nccl),
+            "nccl_device_ms": sum(e.self_device_time_total for e in nccl) / 1e3,
+            "nccl_names": sorted({e.key[:70] for e in nccl}),
+            "top": [{"kernel": e.key[:70], "device_ms": e.self_device_time_total / 1e3,
+                     "count": e.count} for e in top]}
+
+
+def par_timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def par_serial_svgp_step(m, whiten, step_size):
+    """The serial Adam step the sharded one is held to: the model's own ELBO
+    (its `_elbo_parts`; whitened, the sharded path's local ELBO at one
+    shard) on the batch, autograd, optax.adam's rule, no collective."""
+    import torch
+    from gpy_tpu_torch.core.optim import optax_rule
+    from gpy_tpu_torch.parallel.svgp import _local_elbo
+
+    adam = optax_rule("adam", step_size)
+
+    def step(raw, state, Xb, Yb, wb):
+        leaves = {n: v.detach().clone().requires_grad_(True) for n, v in raw.items()}
+        with m.bind_raw_dict(leaves):
+            if whiten:
+                val = _local_elbo(m, Xb, Yb, wb, 1, True)
+            else:
+                datafit, kl = m._elbo_parts(Xb, Yb)
+                val = datafit - kl + m.log_prior()
+        grads = torch.autograd.grad(val, list(leaves.values()), allow_unused=True)
+        new_raw, new_state = {}, {}
+        for (n, x), g in zip(raw.items(), grads):
+            u, new_state[n] = adam.update(-(torch.zeros_like(x) if g is None else g), state[n])
+            new_raw[n] = x + u
+        return new_raw, new_state, val.detach()
+
+    return step
+
+
+def par_svgp(mesh, whiten):
+    """sharded_svgp_train_step at bench.py's SVGP shape, PAR_STEPS steps on
+    batches of SVGP_B rows, against the serial step from the same start."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.parallel import mesh as pm
+    from gpy_tpu_torch.parallel import sharded_svgp_train_step
+
+    X, Y, Z = svgp_data()
+    m = svgp_model(X, Y, Z, torch.float32)
+    step, (raw0, state0), shard = sharded_svgp_train_step(m, mesh, step_size=1e-2, whiten=whiten)
+    Xd = torch.tensor(X, device="cuda")
+    Yd = torch.tensor(Y, device="cuda")
+    wb = torch.ones(SVGP_B, device="cuda")
+    batches = [(shard(Xd[i * SVGP_B:(i + 1) * SVGP_B]), shard(Yd[i * SVGP_B:(i + 1) * SVGP_B]),
+                shard(wb)) for i in range(PAR_STEPS)]
+    n_raw = sum(v.numel() for v in raw0.values())
+
+    def run(fn):
+        raw, state, vals = raw0, state0, []
+        for Xb, Yb, w in batches:
+            raw, state, v = fn(raw, state, Xb, Yb, w)
+            vals.append(v)
+        return torch.stack(vals).double().cpu().numpy()
+
+    run(step)  # warm
+    reset_counters()
+    pm.reset_counts()
+    sharded, dt = par_timed(lambda: run(step))
+    launches, coll = counters(), par_collectives()
+    serial_step = par_serial_svgp_step(m, whiten, 1e-2)
+    run(serial_step)
+    serial, dt_serial = par_timed(lambda: run(serial_step))
+    prof = par_profile(lambda: step(raw0, state0, *batches[0]))
+    rel = float(np.max(np.abs(sharded - serial) / np.abs(serial)))
+    rec = {"whiten": whiten, "steps": PAR_STEPS, "n_raw": n_raw,
+           "ms_per_step": dt / PAR_STEPS * 1e3, "steps_per_s": PAR_STEPS / dt,
+           "serial_ms_per_step": dt_serial / PAR_STEPS * 1e3,
+           "serial_steps_per_s": PAR_STEPS / dt_serial,
+           "elbo_first_last": [float(sharded[0]), float(sharded[-1])],
+           "rel_vs_serial": rel, "launches": launches, "collectives": coll,
+           "payload_bytes_per_step": coll["all_reduce_bytes"] / PAR_STEPS, "profile_one_step": prof}
+    check(np.isfinite(sharded).all() and sharded[-1] > sharded[0],
+          f"parallel svgp whiten={whiten}: the ELBO did not rise: {sharded[0]} -> {sharded[-1]}")
+    check(rel <= PAR_SVGP_REL_TOL, f"parallel svgp whiten={whiten}: sharded vs serial rel {rel}")
+    check(coll["all_reduce"] == PAR_STEPS and coll["all_reduce_elements"] == PAR_STEPS * (n_raw + 1)
+          and coll["all_gather"] == 0, f"parallel svgp whiten={whiten}: collectives {coll}")
+    check(launches["rbf_gram"] == 2 * PAR_STEPS,
+          f"parallel svgp whiten={whiten}: {launches['rbf_gram']} B1 launches")
+    return rec
+
+
+def par_iterative(mesh):
+    """sharded_iterative_nlml_grad(fused=True) at bench.py's N=50,000 against
+    the port's fused iterative model at the same probes."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.parallel import mesh as pm
+    from gpy_tpu_torch.parallel import sharded_iterative_nlml_grad
+
+    X, Y, _ = iterative_data()
+    m = iterative_model(X, Y, torch.float32, fused=True)
+    Zp = m.inference_method._rademacher(ITER_N, torch.float32, torch.device("cuda"))
+    m.inference_method._rademacher = lambda n, dtype, device: Zp
+    fn = sharded_iterative_nlml_grad(mesh, m, fused=True, **ITER_OPTS)
+    fn.inference._rademacher = lambda n, dtype, device: Zp
+    x = m.get_flat_raw()
+    fn(x)  # warm
+    reset_counters()
+    pm.reset_counts()
+    (v, g), dt = par_timed(lambda: fn(x))
+    launches, coll = counters(), par_collectives()
+    m._objective_and_grad(x.cpu().numpy())
+    reset_counters()
+    (vs, gs), dt_serial = par_timed(lambda: m._objective_and_grad(x.cpu().numpy()))
+    serial_launches = counters()
+    prof = par_profile(lambda: fn(x))
+    g = g.double().cpu().numpy()
+    nlml_rel = abs(float(v) - vs) / abs(vs)
+    grad_rel = float(np.max(np.abs(g - gs)) / np.max(np.abs(gs)))
+    rec = {"N": ITER_N, "D": ITER_D, **ITER_OPTS, "fused": True,
+           "ms_per_evaluation": dt * 1e3, "serial_ms_per_evaluation": dt_serial * 1e3,
+           "nlml_rel_vs_serial": nlml_rel, "grad_rel_vs_serial": grad_rel,
+           "limits": [ITER_NLML_TOL, ITER_GRAD_TOL], "launches": launches,
+           "serial_launches": serial_launches, "collectives": coll,
+           "payload_bytes_per_evaluation": coll["all_reduce_bytes"] + coll["all_gather_bytes"],
+           "profile_one_evaluation": prof}
+    check(nlml_rel <= ITER_NLML_TOL and grad_rel <= ITER_GRAD_TOL,
+          f"parallel iterative: rel NLML {nlml_rel}, gradient {grad_rel} against the serial model")
+    check(launches["gram_matvec_fused"] == ITER_OPTS["max_cg"] and launches["gram_moments"] == 0
+          and launches["rbf_gram"] > 0, f"parallel iterative: launches {launches}")
+    check(coll["all_gather"] == ITER_OPTS["max_cg"] and coll["all_reduce"] == 1,
+          f"parallel iterative: collectives {coll}")
+    return rec
+
+
+def par_vardtc(mesh):
+    """sharded_vardtc_elbo_and_grad at N=50,000, M=512 float32 against the
+    serial VarDTC bound's float64 twin (SPARSE_REL_TOL's VarDTC row) and
+    its float32 model."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.parallel import mesh as pm
+    from gpy_tpu_torch.parallel import sharded_vardtc_elbo_and_grad
+
+    X, Y, _ = svgp_data(N=SPARSE_N)
+    m = sparse_model(X, Y, torch.float32)
+
+    def flat(g):
+        return np.concatenate([g[n].double().cpu().numpy().reshape(-1) for n in sorted(g)])
+
+    sharded_vardtc_elbo_and_grad(m, mesh)  # warm
+    reset_counters()
+    pm.reset_counts()
+    (v, g), dt = par_timed(lambda: sharded_vardtc_elbo_and_grad(m, mesh))
+    launches, coll = counters(), par_collectives()
+    prof = par_profile(lambda: sharded_vardtc_elbo_and_grad(m, mesh))
+    x = m.optimizer_array
+    m._objective_and_grad(x)
+    (_, _), dt_serial = par_timed(lambda: m._objective_and_grad(x))
+    out = {}
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        ms = m if dtype == torch.float32 else sparse_model(X, Y, dtype)
+        ms.set_raw_dict({n: p.double() for n, p in m.get_raw_dict().items()})
+        raw = {n: p.clone().requires_grad_(True) for n, p in ms.get_raw_dict(True).items()}
+        with ms.bind_raw_dict(raw):
+            vs = ms.log_likelihood() + ms.log_prior()
+        gs = dict(zip(raw, torch.autograd.grad(vs, list(raw.values()))))
+        out[tag] = (abs(float(v) - vs.item()) / abs(vs.item()),
+                    float(np.max(np.abs(flat(g) - flat(gs))) / np.max(np.abs(flat(gs)))))
+    tol = SPARSE_REL_TOL["vardtc"]
+    rec = {"N": SPARSE_N, "M": SVGP_M, "D": SVGP_D, "ms_per_evaluation": dt * 1e3,
+           "serial_ms_per_evaluation": dt_serial * 1e3,
+           "rel_vs_serial_f64": out["f64"], "rel_vs_serial_f32": out["f32"],
+           "limits": [tol["nlml"], tol["grad"]], "launches": launches, "collectives": coll,
+           "payload_bytes_per_evaluation": coll["all_reduce_bytes"],
+           "profile_one_evaluation": prof}
+    check(out["f64"][0] <= tol["nlml"] and out["f64"][1] <= tol["grad"],
+          f"parallel vardtc: rel {out['f64']} against the float64 serial bound")
+    check(coll["all_reduce"] == 2 and launches["rbf_gram"] == 2,
+          f"parallel vardtc: collectives {coll}, launches {launches}")
+    return rec
+
+
+def par_hmc(mesh):
+    """HMC.sample(mesh=...) with 16 chains at bench.py's N=1000 HMC data
+    against the unsharded call."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch import mcmc
+    from gpy_tpu_torch.parallel import mesh as pm
+
+    Xh, Yh = hmc_data()
+    m = hmc_model(Xh, Yh, torch.float32)
+    hmc = mcmc.HMC(m, stepsize=HMC_STEP, num_leapfrog=HMC_LEAPFROG)
+    kw = dict(num_samples=PAR_HMC_SAMPLES, num_chains=PAR_HMC_CHAINS, seed=3)
+    reset_counters()
+    pm.reset_counts()
+    s, dt = par_timed(lambda: hmc.sample(mesh=mesh, **kw))
+    launches, coll, rate = counters(), par_collectives(), hmc._accept_rate
+    whole, dt_whole = par_timed(lambda: hmc.sample(**kw))
+    rel = float(np.max(np.abs(s - whole) / np.maximum(np.abs(whole), 1e-30)))
+    evals = PAR_HMC_SAMPLES * (1 + HMC_LEAPFROG)
+    rec = {"chains": PAR_HMC_CHAINS, "num_samples": PAR_HMC_SAMPLES, "seconds": dt,
+           "samples_per_s": PAR_HMC_SAMPLES * PAR_HMC_CHAINS / dt,
+           "unsharded_samples_per_s": PAR_HMC_SAMPLES * PAR_HMC_CHAINS / dt_whole,
+           "accept_rate": rate, "rel_vs_unsharded": rel, "launches": launches,
+           "collectives": coll}
+    rate_rel = abs(rate - hmc._accept_rate) / hmc._accept_rate
+    rec["accept_rate_rel_vs_unsharded"] = rate_rel
+    check(s.shape == whole.shape and rel <= 1e-6 and rate_rel <= 1e-6,
+          f"parallel hmc: sharded samples rel {rel}, acceptance rel {rate_rel} against the "
+          f"unsharded call")
+    check(launches["block_chol"] >= block_columns() * evals and coll["all_gather"] == 1,
+          f"parallel hmc: launches {launches}, collectives {coll}")
+    return rec
+
+
+def par_restarts(mesh):
+    """optimize_restarts(parallel=True, mesh=...) with 16 restarts on the
+    HMC model against the unsharded call."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.parallel import mesh as pm
+
+    Xh, Yh = hmc_data()
+    kw = dict(num_restarts=PAR_RESTARTS, parallel=True, max_iters=PAR_RESTART_ITERS,
+              step_size=0.03, seed=0, verbose=False)
+    m = hmc_model(Xh, Yh, torch.float32)
+    reset_counters()
+    pm.reset_counts()
+    res, dt = par_timed(lambda: m.optimize_restarts(mesh=mesh, **kw))
+    launches, coll = counters(), par_collectives()
+    m2 = hmc_model(Xh, Yh, torch.float32)
+    res2, dt2 = par_timed(lambda: m2.optimize_restarts(**kw))
+    f, f2 = np.array([r.f_opt for r in res]), np.array([r.f_opt for r in res2])
+    rel = float(np.max(np.abs(f - f2) / np.abs(f2)))
+    rec = {"restarts": PAR_RESTARTS, "max_iters": PAR_RESTART_ITERS, "seconds": dt,
+           "unsharded_seconds": dt2, "best": float(f.min()), "rel_vs_unsharded": rel,
+           "launches": launches, "collectives": coll}
+    check(rel <= 1e-6, f"parallel restarts: objectives rel {rel} against the unsharded call")
+    check(launches["block_chol"] >= block_columns() * (PAR_RESTART_ITERS + 1)
+          and coll["all_gather"] == 1, f"parallel restarts: launches {launches}, {coll}")
+    return rec
+
+
+# (b) -- the ranks: float64 on the card, sharded against serial
+
+def par_rank_serial(m):
+    import torch
+
+    raw = {k: v.clone().requires_grad_(True) for k, v in m.get_raw_dict(free_only=True).items()}
+    with m.bind_raw_dict(raw):
+        v = m.log_likelihood() + m.log_prior()
+    g = torch.autograd.grad(v, list(raw.values()), allow_unused=True)
+    return v.item(), {k: torch.zeros_like(r) if gi is None else gi
+                      for (k, r), gi in zip(raw.items(), g)}
+
+
+def par_rank_rel(val, grads, sv, sg):
+    """[value rel, max over the raw names of max|grad diff| / max|grad|] of a
+    sharded result against the serial one."""
+    import torch
+
+    if set(grads) != set(sg):
+        return [math.inf, math.inf]
+    return [abs(float(val) - sv) / abs(sv),
+            max(float(torch.max(torch.abs(grads[k] - sg[k]))
+                      / max(float(torch.max(torch.abs(sg[k]))), 1e-300)) for k in sg)]
+
+
+def par_rank_cases(rank):
+    """Every sharded program of gpy_tpu_torch.parallel on the 1-D and the
+    2 x 2 mesh of the ranks, each rank's shards on cuda:0, float64, at the
+    CPU tests' shapes x PAR_SCALE, against the serial path on the card."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch import mcmc, parallel
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.likelihoods import Gaussian
+    from gpy_tpu_torch.models import (BayesianGPLVM, GPMultioutRegression,
+                                      GPMultioutRegressionMD, GPRegression, SparseGPRegression,
+                                      SVGP)
+    from gpy_tpu_torch.inference import IterativeGaussianInference
+    from gpy_tpu_torch.parallel import mesh as pm
+
+    f64 = dict(device="cuda", dtype=torch.float64)
+    meshes = {"1d": (parallel.make_mesh(), "data"),
+              "2d": (parallel.make_mesh_2d(2, 2), ("dcn", "ici"))}
+    S = PAR_SCALE
+    out = {}
+    rng = np.random.default_rng(5)
+    n = 48 * S
+    X = np.linspace(0, 5, n).reshape(n, 1)
+    Y = np.sin(X) + 0.2 * rng.standard_normal((n, 1))
+    for kind, (mesh, ax) in meshes.items():
+        # 8 inducing inputs, as the CPU test: 64 on [0, 5] make Kmm too
+        # ill-conditioned for a 1e-10 gradient (2e-8 read on the card)
+        m = SVGP(X, Y, X[::6 * S].copy(), RBF(1, **f64), Gaussian(variance=0.2, **f64), **f64)
+        m.set_raw_dict({"q_u_mean": 0.3 * rng.standard_normal((m.Z.shape[0], 1))})
+        Xp, Yp, w = parallel.pad_rows_to_multiple(X[:-3], Y[:-3], PAR_RANKS)
+        m2 = SVGP(X[:-3], Y[:-3], X[::6 * S].copy(), RBF(1, **f64),
+                  Gaussian(variance=0.2, **f64), **f64)
+        m2.set_raw_dict(m.get_raw_dict())
+        val, g = parallel.data_parallel_elbo_and_grad(m2, mesh, Xp, Yp, w, axis_name=ax)
+        out[f"svgp_elbo_{kind}_padded"] = par_rank_rel(val, g, *par_rank_serial(m2))
+        step, (raw, state), shard = parallel.sharded_svgp_train_step(m, mesh, 5e-2, ax)
+        Xs, Ys, ws = shard(X), shard(Y), shard(np.ones(n))
+        pm.reset_counts()
+        vals = []
+        for _ in range(5):
+            raw, state, v = step(raw, state, Xs, Ys, ws)
+            vals.append(float(v))
+        c = par_collectives()
+        n_raw = sum(t.numel() for t in raw.values())
+        axes = 1 if kind == "1d" else 2
+        check(c["all_reduce"] == 5 * axes and c["all_reduce_elements"] == 5 * axes * (n_raw + 1)
+              and vals[-1] > vals[0], f"parallel ranks train step {kind}: {c}, {vals}")
+        out[f"train_step_{kind}_first_elbo"] = [abs(vals[0] - par_rank_serial(m)[0])
+                                                / abs(vals[0])]
+    # the Gram product: blockwise float64 against dense; B5's slab (float32)
+    rng = np.random.default_rng(0)
+    N = 64 * PAR_RANKS * S
+    k = RBF(3, variance=0.9, lengthscale=1.1, **f64)
+    Xg = torch.tensor(rng.uniform(0, 5, (N, 3)), **f64)
+    V = torch.tensor(rng.standard_normal((N, 4)), **f64)
+    noise = torch.full((N,), 0.2, **f64)
+    with torch.no_grad():
+        dense = (k.K(Xg) + torch.diag(noise)) @ V
+    for kind, (mesh, ax) in meshes.items():
+        got = parallel.sharded_gram_matvec(mesh, k, Xg, V, noise=noise, block=64 * S,
+                                           axis_name=ax)
+        out[f"gram_matvec_{kind}"] = [float(torch.max(torch.abs(got - dense))
+                                            / torch.max(torch.abs(dense)))]
+        fused = parallel.sharded_gram_matvec(mesh, k, Xg, V, noise=noise, axis_name=ax,
+                                             fused=True)
+        out[f"b5_slab_{kind}"] = float(torch.max(torch.abs(fused - dense))
+                                       / torch.max(torch.abs(dense)))
+        check(out[f"b5_slab_{kind}"] <= FUSED_FWD_TOL,
+              f"parallel ranks B5 slab {kind}: {out[f'b5_slab_{kind}']}")
+    # the iterative NLML, blockwise float64, probes of the serial model. At
+    # N=1280 CG converges by ~20 steps; past it the SLQ coefficients are
+    # rounding noise, and a product rounded differently (a rank's slab
+    # against the whole Gram's blocks) moves the estimate by ~1e-5 (a 1e-16
+    # relative perturbation of each product does so on the CPU): held at
+    # max_cg=10, recorded at the CPU test's 60
+    rng = np.random.default_rng(1)
+    N = 40 * PAR_RANKS * S
+    Xi = rng.uniform(0, 8, (N, 2))
+    Yi = np.sin(Xi[:, :1]) + 0.1 * rng.standard_normal((N, 1))
+    for max_cg in (10, 60):
+        inf = IterativeGaussianInference(max_cg=max_cg, n_probes=8, block=64 * S, seed=0,
+                                         materialize=False)
+        mi = GPRegression(Xi, Yi, RBF(2, 1.1, 1.4, **f64), noise_var=0.1, inference_method=inf,
+                          **f64)
+        x = mi.get_flat_raw()
+        sv, sg = mi._objective_and_grad(x)
+        for kind, (mesh, ax) in meshes.items():
+            fn = parallel.sharded_iterative_nlml_grad(mesh, mi, max_cg=max_cg, n_probes=8,
+                                                      block=64 * S, seed=0, axis_name=ax)
+            v, g = fn(x)
+            g = g.cpu().numpy()
+            rel = [abs(float(v) - sv) / abs(sv),
+                   float(np.max(np.abs(g - sg)) / np.max(np.abs(sg)))]
+            # a list is held to PAR_RANK_TOL, a tuple recorded
+            out[f"iterative_{kind}_max_cg{max_cg}"] = rel if max_cg == 10 else tuple(rel)
+    # VarDTC (padded rows), BGPLVM, LVMOGP and its missing-data bound
+    rng = np.random.default_rng(7)
+    N, M = 83 * S, 9 * 4
+    Xv = rng.random((N, 3)) * 5.0
+    Yv = np.concatenate([np.sin(Xv[:, :1]), np.cos(Xv[:, :1])], 1) \
+        + 0.1 * rng.standard_normal((N, 2))
+    mv = SparseGPRegression(Xv, Yv, num_inducing=M, Z=Xv[:M].copy(), **f64)
+    for kind, (mesh, ax) in meshes.items():
+        pm.reset_counts()
+        val, g = parallel.sharded_vardtc_elbo_and_grad(mv, mesh, axis_name=ax)
+        check(par_collectives()["all_reduce"] == 2 * (1 if kind == "1d" else 2),
+              f"parallel ranks vardtc {kind}: collectives {par_collectives()}")
+        out[f"vardtc_{kind}"] = par_rank_rel(val, g, *par_rank_serial(mv))
+    rng = np.random.default_rng(8)
+    N = 43 * S
+    Yb = rng.standard_normal((N, 2)) @ rng.standard_normal((2, 4)) \
+        + 0.1 * rng.standard_normal((N, 4))
+    mb = BayesianGPLVM(Yb, 3, num_inducing=7 * 4, **f64)
+    for kind, (mesh, ax) in meshes.items():
+        val, g = parallel.sharded_bgplvm_elbo_and_grad(mb, mesh, axis_name=ax)
+        out[f"bgplvm_{kind}"] = par_rank_rel(val, g, *par_rank_serial(mb))
+    rng = np.random.default_rng(11)
+    n, d = 21 * S, 5
+    Xm = np.linspace(0, 5, n).reshape(-1, 1)
+    Ym = np.hstack([np.sin(Xm) * wgt for wgt in np.linspace(0.5, 1.5, d)]) \
+        + 0.05 * rng.standard_normal((n, d))
+    mm = GPMultioutRegression(Xm, Ym, Xr_dim=2, num_inducing=(6 * 2, 2), init="rand", **f64)
+    idx = np.repeat(np.arange(4), 9 * S)
+    Xd = np.linspace(0, 5, idx.size).reshape(-1, 1)
+    Yd = np.sin(Xd) * (0.5 + 0.3 * idx[:, None]) + 0.05 * rng.standard_normal((idx.size, 1))
+    md = GPMultioutRegressionMD(Xd, Yd, idx, Xr_dim=2, num_inducing=(6 * 2, 2), init="rand",
+                                heter_noise=True, **f64)
+    for kind, (mesh, ax) in meshes.items():
+        val, g = parallel.sharded_svi_multiout_elbo_and_grad(mm, mesh, axis_name=ax)
+        out[f"svi_multiout_{kind}"] = par_rank_rel(val, g, *par_rank_serial(mm))
+        val, g = parallel.sharded_svi_multiout_md_elbo_and_grad(md, mesh, axis_name=ax)
+        out[f"svi_multiout_md_{kind}"] = par_rank_rel(val, g, *par_rank_serial(md))
+    # HMC chains and parallel restarts split over the mesh (B2/B3 at N=320)
+    rng = np.random.default_rng(4)
+    Xh = rng.random((40 * S, 1)) * 4.0
+    Yh = np.sin(Xh) + 0.1 * rng.standard_normal(Xh.shape)
+    mh = GPRegression(Xh, Yh, **f64)
+    x0 = mh.get_flat_raw().clone()
+    hmc = mcmc.HMC(mh, stepsize=0.05, num_leapfrog=5)
+    whole = hmc.sample(num_samples=10, num_chains=8, seed=1)
+    kw = dict(num_restarts=8, parallel=True, max_iters=30, step_size=5e-2, seed=0,
+              verbose=False)
+    rr = mh.optimize_restarts(**kw)  # keeps its best point: each call starts from x0
+    for kind, (mesh, _) in meshes.items():
+        mh.set_flat_raw(x0)
+        s = hmc.sample(num_samples=10, num_chains=8, seed=1, mesh=mesh)
+        out[f"hmc_{kind}"] = [float(np.max(np.abs(s - whole) / np.abs(whole)))]
+        r = mh.optimize_restarts(mesh=mesh, **kw)
+        out[f"restarts_{kind}"] = [max(abs(a.f_opt - b.f_opt) / abs(b.f_opt)
+                                       for a, b in zip(r, rr))]
+    # every reading against the serial path: lists of relative errors
+    out["over_limit"] = sorted(k for k, v in out.items()
+                               if isinstance(v, list) and max(v) > PAR_RANK_TOL)
+    out["launches"] = counters()
+    return out
+
+
+def par_rank_main(rank, init_file, q):
+    """One of the PAR_RANKS gloo ranks: its cases, then its result on q."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=PAR_RANKS,
+                            timeout=datetime.timedelta(seconds=PAR_RANK_TIMEOUT_S))
+    try:
+        t0 = time.perf_counter()
+        out = par_rank_cases(rank)
+        out["seconds"] = time.perf_counter() - t0
+        q.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 -- sent to the parent, which fails the phase
+        q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def par_ranks():
+    """Spawn the gloo ranks (the parent has CUDA up: spawn, not fork; the
+    kernels are built already, so no rank starts nvcc) and check every
+    rank's result and exit code."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = os.path.join(tempfile.mkdtemp(prefix="gloo_"), "rendezvous")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=par_rank_main, args=(r, init, q)) for r in range(PAR_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < PAR_RANKS:
+            rank, ok, out = q.get(timeout=PAR_RANK_TIMEOUT_S)
+            got[rank] = (ok, out)
+    except queue.Empty:
+        pass
+    for p in procs:
+        p.join(60)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    failed = {r: out for r, (ok, out) in got.items() if not ok}
+    check(not failed, f"parallel ranks failed: {failed}")
+    check(len(got) == PAR_RANKS and all(p.exitcode == 0 for p in procs),
+          f"parallel ranks: results from {sorted(got)}, exit codes "
+          f"{[p.exitcode for p in procs]}")
+    rec = dict(got[0][1])
+    rec["seconds_with_spawn"] = time.perf_counter() - t0
+    rec["rank_seconds"] = [got[r][1]["seconds"] for r in range(PAR_RANKS)]
+    rec["over_limit_by_rank"] = [got[r][1]["over_limit"] for r in range(PAR_RANKS)]
+    return rec
+
+
+def run_parallel(fm, smi):
+    """The parallel phase: (a) a 1-rank NCCL mesh over cuda:0 at full width,
+    (b) PAR_RANKS gloo ranks sharing cuda:0 in float64, and B5's slab at
+    the shapes this path gives it."""
+    import torch
+    import torch.distributed as dist
+    from gpy_tpu_torch.parallel import make_mesh
+
+    t_start = time.perf_counter()
+    parts = {}
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and mesh.size() == 1, "parallel: not a 1-rank NCCL mesh")
+    rec = {"phase": "parallel", "mesh": "1-rank NCCL, cuda:0", "dtype": "float32"}
+    # each reading's counts are read around its own run; the launches of the
+    # comparisons against serial or unsharded paths are not among them
+    main_launches = {"rbf_gram": 0, "gram_matvec_fused": 0, "block_chol": 0}
+    for name, fn in (("svgp_train_step", lambda: par_svgp(mesh, False)),
+                     ("svgp_train_step_whitened", lambda: par_svgp(mesh, True)),
+                     ("iterative_fused", lambda: par_iterative(mesh)),
+                     ("vardtc", lambda: par_vardtc(mesh)),
+                     ("hmc", lambda: par_hmc(mesh)),
+                     ("restarts", lambda: par_restarts(mesh))):
+        t0 = time.perf_counter()
+        rec[name] = fn()
+        parts[name] = time.perf_counter() - t0
+        emit({"phase": "parallel_part", "part": name, **rec[name]})
+        for k in main_launches:
+            main_launches[k] += rec[name]["launches"][k]
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["b5_slab_checks"] = []
+    for k in (1, PAR_RANKS):  # a rank's slab (N/k, N) of the sharded product
+        rel, err = check_fused_matvec(fm, FAMILIES["RBF"], "f32x3",
+                                      (f"slab_k{k}", ITER_N // k, ITER_N, ITER_D, 9))
+        rec["b5_slab_checks"].append({"shape": f"({ITER_N // k}, {ITER_N}) D={ITER_D} R=9",
+                                      "rel_err": rel, "max_abs_err": err, "tol": FUSED_FWD_TOL})
+    parts["b5_slab_checks"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["gloo_ranks"] = par_ranks()
+    parts["gloo_ranks"] = time.perf_counter() - t0
+    rec.update(main_path_launches=main_launches, seconds=time.perf_counter() - t_start,
+               part_seconds=parts, nvidia_smi=smi)
+    emit(rec)  # before the limit below, so that a failing run still shows its readings
+    check(not any(rec["gloo_ranks"]["over_limit_by_rank"]),
+          f"parallel ranks: sharded against serial above {PAR_RANK_TOL}: "
+          f"{rec['gloo_ranks']['over_limit_by_rank']}")
+    return {"launches": main_launches,
+            "b5_max_abs_err": max(c["max_abs_err"] for c in rec["b5_slab_checks"])}
+
+
 def main() -> int:
     import torch
 
@@ -5775,6 +6386,8 @@ def main() -> int:
     lfm_rec = run_lfm_symbolic(rg, smi)
     # the surface: the examples, save and load, plots and the profiler
     surf_rec = run_surface(rg, fm, smi)
+    # sharding: a 1-rank NCCL mesh at full width, 4 gloo ranks on the card
+    par_rec = run_parallel(fm, smi)
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
@@ -5791,7 +6404,8 @@ def main() -> int:
         + multi_rec["launches_multioutput"] + latent_rec["launches_gplvm"]
         + latent_rec["launches_sparse_hmc"] + s15_rec["launches_rbf_gram"]
         + ss_rec["launches_rbf_gram"] + lt_rec["launches_rbf_gram"]
-        + lfm_rec["launches_rbf_gram"] + surf_rec["launches_rbf_gram"],
+        + lfm_rec["launches_rbf_gram"] + surf_rec["launches_rbf_gram"]
+        + par_rec["launches"]["rbf_gram"],
         "launches_svgp": svgp_rec["launches"]["rbf_gram"],
         "launches_sparse": sparse_rec["launches"],
         "launches_classification": cls_rec["launches"],
@@ -5804,6 +6418,7 @@ def main() -> int:
         "launches_longtail": lt_rec["launches_rbf_gram"],
         "launches_lfm_symbolic": lfm_rec["launches_rbf_gram"],
         "launches_surface": surf_rec["launches_rbf_gram"],
+        "launches_parallel": par_rec["launches"]["rbf_gram"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + svgp_rec["rbf_gram_checks"]
                            + sparse_rec["rbf_gram_checks"] + cls_rec["rbf_gram_checks"]
                            + multi_rec["rbf_gram_checks"] + latent_rec["rbf_gram_checks"]
@@ -5824,10 +6439,11 @@ def main() -> int:
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
         "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:71",
         "launches": iter_rec["fused"]["launches"]["gram_matvec_fused"]
-        + surf_rec["launches_gram_matvec_fused"],
+        + surf_rec["launches_gram_matvec_fused"] + par_rec["launches"]["gram_matvec_fused"],
         "launches_iterative": iter_rec["fused"]["launches"]["gram_matvec_fused"],
         "launches_surface": surf_rec["launches_gram_matvec_fused"],
-        "max_abs_err": max([fused_err, surf_rec["b5_max_abs_err"]]
+        "launches_parallel": par_rec["launches"]["gram_matvec_fused"],
+        "max_abs_err": max([fused_err, surf_rec["b5_max_abs_err"], par_rec["b5_max_abs_err"]]
                            + [t["max_abs_err"] for t in mv_all]),
         "main_path_rel_err": {f"R{t['R']}": t["rel_err"] for t in mv_all},
         "main_path_rel_tol": {f"R{t['R']}": t["rel_tol"] for t in mv_all},
@@ -5853,9 +6469,11 @@ def main() -> int:
         "name": "block_chol", "route": "cuda", "source": "gpy_tpu_torch/csrc/block_chol.cu",
         "replaces": "gpy_tpu/ops/pallas_chol.py:123 (_block_kernel_v2) and :175 "
                     "(_block_kernel_v2_multi)",
-        "launches": hmc_rec["launches"]["block_chol"] + s15_rec["launches_block_chol"],
+        "launches": hmc_rec["launches"]["block_chol"] + s15_rec["launches_block_chol"]
+        + par_rec["launches"]["block_chol"],
         "launches_hmc": hmc_rec["launches"]["block_chol"],
         "launches_optimizer_restarts": s15_rec["launches_block_chol"],
+        "launches_parallel": par_rec["launches"]["block_chol"],
         "max_abs_err": chol_err["block_chol"],
         "shape": "(8, 128, 128) float32", "ms": b2["ms"], "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],

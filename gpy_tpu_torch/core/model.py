@@ -352,13 +352,17 @@ class Model(Module):
         inits (gpy_tpu/core/model.py:357-395). Restart i > 0 starts from
         `randomize(rng)`, rng = np.random.default_rng(seed), drawing in the
         reference's order. parallel=True runs every restart at once through
-        the batched objective (`_optimize_restarts_parallel`)."""
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded restarts are not ported yet (ROADMAP A16)")
+        the batched objective (`_optimize_restarts_parallel`); with `mesh`
+        (a DeviceMesh of gpy_tpu_torch.parallel) the restarts split over the
+        mesh's ranks. The reference ignores a mesh without parallel=True;
+        here that raises."""
+        if mesh is not None and not parallel:
+            raise ValueError("mesh= splits the parallel restarts: pass parallel=True")
         rng = np.random.default_rng(seed)
         initial = self.get_flat_raw()
         if parallel:
-            return self._optimize_restarts_parallel(num_restarts, rng, initial, verbose, **kwargs)
+            return self._optimize_restarts_parallel(num_restarts, rng, initial, verbose,
+                                                    mesh=mesh, **kwargs)
         best_obj, best_x = np.inf, None
         results = []
         for i in range(num_restarts):
@@ -380,12 +384,17 @@ class Model(Module):
         return results
 
     def _optimize_restarts_parallel(self, num_restarts, rng, initial, verbose,
-                                    optimizer="adam", max_iters=1000, step_size=1e-2, **kwargs):
+                                    optimizer="adam", max_iters=1000, step_size=1e-2, mesh=None,
+                                    **kwargs):
         """gpy_tpu/core/model.py:397-446: R inits (the current point and R-1
         draws), max_iters Adam steps on the (R, P) tensor through the batched
         objective (one batched factorization per step), then the R
         objectives at the end points; the best finite one is kept. Each row
-        keeps its own optimizer state: the rules are elementwise."""
+        keeps its own optimizer state: the rules are elementwise. With
+        `mesh`, every rank draws all R inits from the one seed, runs its
+        contiguous share of them (R must divide by the mesh's size) and
+        all_gathers the end points and objectives, so every rank keeps the
+        same best point."""
         if optimizer not in _OPTAX:
             raise ValueError("parallel restarts run as one batched loop and need an optax "
                              f"optimizer, not {optimizer!r}")
@@ -397,13 +406,26 @@ class Model(Module):
         finally:
             self.set_flat_raw(initial)
         xs = torch.stack(inits)
+        if mesh is not None:
+            from ..parallel.mesh import check_device, shard_slice
+
+            check_device(mesh, xs)
+            _, lo, hi = shard_slice(mesh, num_restarts, tuple(mesh.mesh_dim_names))
+            xs = xs[lo:hi]
         step = _rule_stepper(optimizer, xs, step_size)
         for _ in range(max_iters):
             _, g = self._batched_objective_and_grad(xs)
             xs = step(xs, g)
         with torch.no_grad():
-            vf = self._batched_objective(xs).cpu().numpy().astype(np.float64)
+            vf = self._batched_objective(xs)
         xs = xs.detach()
+        if mesh is not None:
+            from ..parallel.mesh import all_gather_rows
+
+            rows = all_gather_rows(mesh, torch.cat([xs, vf[:, None]], dim=1),
+                                   tuple(mesh.mesh_dim_names))
+            xs, vf = rows[:, :-1], rows[:, -1]
+        vf = vf.cpu().numpy().astype(np.float64)
         vf_safe = np.where(np.isfinite(vf), vf, np.inf)
         best = int(np.argmin(vf_safe))
         if np.isfinite(vf_safe[best]):

@@ -108,7 +108,28 @@ def _rprop(learning_rate, eta_minus=0.5, eta_plus=1.2, min_step_size=1e-6, max_s
     return _Rule(init, update)
 
 
-OPTAX_RULES = {"adagrad": _adagrad, "rmsprop": _rmsprop, "adadelta": _adadelta,
+def _adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8):
+    """optax.adam: bias-corrected first and second moments, eps outside the
+    square root, then scale(-lr). The functional form of the torch.optim.Adam
+    that Model.optimize runs (core/model.py `_adam`), for loops that carry
+    their state themselves (the sharded SVGP step)."""
+
+    def init(x):
+        return (0, torch.zeros_like(x), torch.zeros_like(x))
+
+    def update(g, state):
+        t, mu, nu = state
+        t += 1
+        mu = b1 * mu + (1 - b1) * g
+        nu = b2 * nu + (1 - b2) * g * g
+        m_hat = mu / (1 - b1**t)
+        v_hat = nu / (1 - b2**t)
+        return -learning_rate * m_hat / (torch.sqrt(v_hat) + eps), (t, mu, nu)
+
+    return _Rule(init, update)
+
+
+OPTAX_RULES = {"adam": _adam, "adagrad": _adagrad, "rmsprop": _rmsprop, "adadelta": _adadelta,
                "rprop": _rprop}
 
 

@@ -145,9 +145,14 @@ class HMC:
 
         adapt_steps > 0 first runs dual-averaging step-size adaptation per
         chain (its draws are discarded). num_chains > 1 starts the chains at
-        the model's point plus 0.01 N(0, I) and runs them as one batch."""
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded chains are not ported yet (ROADMAP A16)")
+        the model's point plus 0.01 N(0, I) and runs them as one batch.
+
+        With `mesh` (a DeviceMesh of gpy_tpu_torch.parallel) the chains split
+        over every axis of the mesh: each rank draws every chain's numbers
+        from the one seed, runs its contiguous share of the chains as one
+        batch and all_gathers the samples, so every rank returns the
+        unsharded call's (C, num_samples, P) array. C must divide by the
+        mesh's size."""
         num_samples = hmc_iters or num_samples
         x0 = self.model.get_flat_raw()
         P = x0.shape[0]
@@ -165,6 +170,13 @@ class HMC:
         p0 = z @ self.M_chol.T
 
         eps0 = torch.full(batch, float(self.stepsize), dtype=dt, device=dev)
+        if mesh is not None:
+            from ..parallel.mesh import check_device, shard_slice
+
+            check_device(mesh, x0)
+            _, lo, hi = shard_slice(mesh, num_chains, tuple(mesh.mesh_dim_names))
+            if batch:
+                x, p0, log_u, eps0 = x[lo:hi], p0[:, lo:hi], log_u[:, lo:hi], eps0[lo:hi]
         if adapt_steps > 0:
             x, eps = self._adapt(x, p0[:adapt_steps], log_u[:adapt_steps], eps0, target_accept)
         else:
@@ -174,8 +186,17 @@ class HMC:
             x, a = self._proposal(x, p0[t], log_u[t], eps)
             xs.append(x)
             accepts.append(a)
-        self._accept_rate = float(torch.stack(accepts).mean())
-        samples = _to_constrained(self.model, torch.stack(xs))  # (S, [C,] P)
+        xs, accepts = torch.stack(xs), torch.stack(accepts)  # (S, [C,] P), (S, [C])
+        if mesh is not None and batch:
+            from ..parallel.mesh import all_gather_rows
+
+            S = xs.shape[0]
+            rows = torch.cat([xs.transpose(0, 1).reshape(xs.shape[1], -1), accepts.T], dim=1)
+            rows = all_gather_rows(mesh, rows, tuple(mesh.mesh_dim_names))
+            xs = rows[:, :S * P].reshape(num_chains, S, P).transpose(0, 1)
+            accepts = rows[:, S * P:].T
+        self._accept_rate = float(accepts.mean())
+        samples = _to_constrained(self.model, xs)  # (S, [C,] P)
         return samples if not batch else np.ascontiguousarray(np.swapaxes(samples, 0, 1))
 
     def _adapt(self, x, p0, log_u, eps0, target_accept):

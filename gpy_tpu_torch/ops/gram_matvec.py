@@ -24,17 +24,22 @@ def _pad_rows(X, block):
     return X, n + n_pad
 
 
-def gram_matvec(kern, X, V, noise=None, block=2048):
+def gram_matvec(kern, X, V, noise=None, block=2048, X2=None):
     """(K + diag(noise)) @ V for any kernel with a .K(X, X2) method.
 
     V: (N, R) or (N,). The last row block is ragged rather than padded: rows
-    are independent, so the result is the reference's.
+    are independent, so the result is the reference's. With X2 (M, D) given
+    it is the rectangular slab K(X, X2) @ V, V of M rows (a rank's rows of
+    the sharded product, parallel/iterative.py), and `noise` is refused.
     """
+    if X2 is not None and noise is not None:
+        raise ValueError("noise diagonal undefined for rectangular slabs")
     N = X.shape[0]
+    X2 = X if X2 is None else X2
     V2 = V if V.ndim == 2 else V[:, None]
 
     def one_block(xb):
-        return kern.K(xb, X) @ V2
+        return kern.K(xb, X2) @ V2
 
     remat = torch.is_grad_enabled()
     outs = []

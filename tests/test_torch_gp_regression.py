@@ -208,13 +208,16 @@ def test_set_xy_refreshes_the_posterior_and_logpdf_matches():
 
 
 def test_unported_options_raise_not_implemented():
-    """Mesh-sharded restarts (ROADMAP A16) still raise; an unknown optimizer
-    is a ValueError. The options this check once held to a raise
-    (lbfgs_device, rprop, normalizer=True) now compute: each leaves a
-    finite objective no higher than its start."""
+    """A mesh without parallel=True, or a mesh that is not a DeviceMesh,
+    raises (mesh-sharded restarts are ported: tests/test_torch_parallel.py);
+    an unknown optimizer is a ValueError. The options this check once held
+    to a raise (lbfgs_device, rprop, normalizer=True) now compute: each
+    leaves a finite objective no higher than its start."""
     _, tm = _twins(20, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="parallel=True"):
         tm.optimize_restarts(num_restarts=2, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tm.optimize_restarts(num_restarts=2, parallel=True, max_iters=1, mesh=object())
     with pytest.raises(ValueError, match="unknown optimizer"):
         tm.optimize(optimizer="newton")
     f0 = tm.objective_function().item()

@@ -97,7 +97,7 @@ def test_mean_function_exact_and_batched():
     for a, b in zip(tm.predict(Xs), jm.predict(Xs)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-9)
     flats = np.asarray(jm.get_flat_raw())[None] + 0.1 * np.arange(3)[:, None]
-    v, g = jax.vmap(jax.value_and_grad(jm._flat_objective))(jnp.asarray(flats))
+    v, g = jax.jit(jax.vmap(jax.value_and_grad(jm._flat_objective)))(jnp.asarray(flats))
     vt, gt = tm._batched_objective_and_grad(torch.tensor(flats))
     np.testing.assert_allclose(vt.numpy(), np.asarray(v), rtol=1e-10)
     np.testing.assert_allclose(gt.numpy(), np.asarray(g), rtol=1e-8, atol=1e-10)

@@ -5,7 +5,7 @@ every module of gpy_tpu/ and its counterpart in gpy_tpu_torch/.
 PORTED lists the names the port has. Every other name is an expected
 failure (strict): the count of passes is the progress of the port, and a
 name ported without being added to PORTED fails here as an unexpected pass.
-The module map has one strict expected failure, parallel/ (ROADMAP A16).
+Every module of the map has its counterpart (parallel/, A16, the last).
 """
 import importlib
 import importlib.util
@@ -113,7 +113,7 @@ ELSEWHERE = {
 }
 # reference modules with no counterpart on purpose
 NOT_NEEDED = {"util/cplx.py": "torch has native complex dtypes (ROADMAP A17)"}
-STILL_TO_PORT = {"parallel/__init__.py": "ROADMAP A16: sharding over several cards"}
+STILL_TO_PORT = {}
 
 
 def _reference_modules():

@@ -64,7 +64,7 @@ def test_batched_logp_and_grad_match_reference_vmap(jac):
     flats = _rows(tm, 4, 1)
     hj, ht = jmcmc.HMC(jm, jacobian_correction=jac), mcmc.HMC(tm, jacobian_correction=jac)
     x_before = tm.get_flat_raw().clone()
-    vr, gr = jax.vmap(jax.value_and_grad(hj._logp))(jnp.asarray(flats))
+    vr, gr = jax.jit(jax.vmap(jax.value_and_grad(hj._logp)))(jnp.asarray(flats))
     before = bc.launches
     v, g = value_and_grad(ht._logp, torch.as_tensor(flats))
     np.testing.assert_allclose(v.numpy(), np.asarray(vr), rtol=1e-9)
@@ -120,7 +120,7 @@ def test_one_proposal_matches_reference(kind):
     # a step per chain, as adaptation leaves them: from accepted to rejected
     eps = np.array([0.005, 0.02, 0.05, 0.08])
     kernel = hj._hmc_kernel(hj._logp)
-    xr, ar = jax.vmap(kernel)(jnp.asarray(flats), keys, jnp.asarray(eps))
+    xr, ar = jax.jit(jax.vmap(kernel))(jnp.asarray(flats), keys, jnp.asarray(eps))
     p0, log_u = _reference_draws(hj, keys, 3)
     x, a = ht._proposal(torch.as_tensor(flats), p0, log_u, torch.as_tensor(eps))
     np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=1e-8)
@@ -207,7 +207,7 @@ def test_mass_matrix_follows_the_free_parameters():
     m.kern.variance.unfix()
     with pytest.raises(ValueError, match="mass matrix"):
         h2.sample(num_samples=2)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         hmc.sample(num_samples=2, mesh=object())
 
 
@@ -252,7 +252,7 @@ def test_parallel_restarts_match_reference():
     rms = tm.optimize_restarts(parallel=True, optimizer="rmsprop", num_restarts=2, max_iters=5,
                                verbose=False)
     assert len(rms) == 2 and all(np.isfinite(r.f_opt) for r in rms)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tm.optimize_restarts(parallel=True, mesh=object())
 
 
@@ -317,7 +317,7 @@ def test_batched_objective_needs_a_batched_inference():
     jm = JGPRegression(X, Y, noise_var=0.1, inference_method=JIterative(**opts))
     rows = torch.as_tensor(_rows(m, 3, seed=2, scale=0.1))
     _against_rows(m, rows)
-    vr, gr = jax.vmap(jax.value_and_grad(jm._flat_objective))(jnp.asarray(rows.numpy()))
+    vr, gr = jax.jit(jax.vmap(jax.value_and_grad(jm._flat_objective)))(jnp.asarray(rows.numpy()))
     v, g = m._batched_objective_and_grad(rows)
     np.testing.assert_allclose(v.numpy(), np.asarray(vr), rtol=1e-9)
     np.testing.assert_allclose(g.numpy(), np.asarray(gr), rtol=1e-7,
