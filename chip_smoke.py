@@ -20,8 +20,10 @@ Phases, each printing one JSON line:
                 its bound, objective+gradient and predict times;
   6. profile -- device time by kernel over one objective+gradient;
   7. kernels_fused -- the fused Gram-matvec (B5) against its plain twin for
-                the four families, the three accum modes and nine shapes
-                (and once on unaligned views),
+                the four families, the three accum modes and thirteen
+                shapes (four of them the wide kernel's, R > 16; and once
+                on unaligned views), the wide kernel's second launch bit
+                for bit against its first,
                 and its gradient moments (B6, through the autograd
                 Function) against autograd of the plain twin for the four
                 families at D = 1, 4, 8, 12 by R = 1, 9, 16 and two ragged
@@ -33,10 +35,13 @@ Phases, each printing one JSON line:
                 gradient, predict on 256 new points, optimize(max_iters=2),
                 predict and predict_quantiles, launch counters read
                 around each step, a float64 materialized twin at the
-                same probes as reference, and the exact NLML (float64
-                Cholesky) at the start and after optimize;
+                same probes as reference, the exact NLML (float64
+                Cholesky) at the start and after optimize, and the fused
+                model's predict variance against its CG through the
+                float64 plain twin;
   9. iterative_times -- B5 at N=50,000 by the profiler's device time and
-                by CUDA events (R = 9, 16, 256, 1), B6 (and its reduce) by
+                by CUDA events (R = 9, 16, 256, 1, 17, 64, 1024), B6 (and
+                its reduce) by
                 the profiler's device time and by events, each
                 beside its plain twin and bounds, each kernel's error there
                 checked against its plain twin, NLML+gradient and predict
@@ -699,15 +704,17 @@ def profile_objective(m, x, what=f"one objective_and_grad, N={SLICE_N} float32")
 # --- the fused Gram-matvec (B5) and its gradient moments (B6) ---------------
 
 # the kernel against its plain twin, both float32 on the card, max error
-# relative to max|ref|; every accum mode runs as float32 FFMA. ~10x the
-# readings on an H100 (forward 2.6e-6, gradient moments 1.7e-7)
+# relative to max|ref|; every accum mode runs the same contraction (FFMA at
+# R <= 16, 3xTF32 with per-tile promotion above). ~10x the readings on an
+# H100 (forward 2.6e-6, gradient moments 1.7e-7)
 FUSED_FWD_TOL = 3e-5
 FUSED_BWD_TOL = 2e-6
 # the same at the main path's N=50,000, D=4: B5 by R against the float32
 # plain twin, B6 against the float64 plain twin. ~10x the readings on an
-# H100 (B5 2.6e-6 at R=9, 1.45e-5 at R=256 (the wide kernel), 3.2e-6 at
-# R=1; B6 8.7e-8); R=16 takes R=9's limit
-FUSED_FWD_TOL_50K = {9: 3e-5, 256: 1.5e-4, 1: 3e-5, 16: 3e-5}
+# H100 (B5 2.6e-6 at R=9, 1.45e-5 at R=256 (the FFMA wide kernel), 3.2e-6 at
+# R=1; B6 8.7e-8); R=16 takes R=9's limit. R=17, 64 and 1024 run the
+# tensor-core kernel: 3.1e-6, 2.8e-6 and 2.6e-6 (2.9e-6 at R=256)
+FUSED_FWD_TOL_50K = {9: 3e-5, 256: 1.5e-4, 1: 3e-5, 16: 3e-5, 17: 3e-5, 64: 3e-5, 1024: 3e-5}
 FUSED_BWD_TOL_50K = 1e-6
 
 
@@ -811,6 +818,26 @@ def check_fused_unaligned(fm):
     return {"gram_matvec_fused": rel, "gram_moments": mrel}
 
 
+# the wide kernel's edges (R > 16, the tensor cores): R = 17 (4-byte copies
+# of V, most of a 128-column chunk zero), 64, ragged rows, columns and R one
+# past two 128-column chunks, D > 8 at a wide R
+WIDE_SHAPES = [("wide_r17", 2048, None, 4, 17), ("wide_r64", 2048, None, 4, 64),
+               ("wide_r257_rect", 2047, 3001, 4, 257), ("wide_r2048_d12", 2047, 3001, 12, 2048)]
+
+
+def check_wide_repeat(fm):
+    """A second launch of the wide kernel at (4096, 4, 256) equals the
+    first bit for bit (each output entry is written once, no atomics)."""
+    import torch
+
+    X, _, V, ls, v = fused_inputs(4096, None, 4, 256, seed=41)
+    Xs = (X / ls).contiguous()
+    a = fm.stationary_gram_matvec_cuda(Xs, Xs, V, v.reshape(1), 0)
+    b = fm.stationary_gram_matvec_cuda(Xs, Xs, V, v.reshape(1), 0)
+    check(bool(torch.equal(a, b)), "gram_matvec_fused wide: two launches on the same inputs differ")
+    return True
+
+
 # B6's shapes (N, D, R): the register-tile kernel at D = 1, 4, 8 (DMAX 4
 # and 8) by its R chunks 1, 9, 16, the chunk kernel at D = 12, and ragged N
 MOMENT_SHAPES = [(4096, D, R) for D in (1, 4, 8, 12) for R in (1, 9, 16)] + [
@@ -824,7 +851,7 @@ def run_fused_checks(fm):
               # the register-tile kernel's edges: D=1 with a ragged last
               # tile, DMAX=8 at the widest R, ragged rows, columns and R
               ("d1", 2049, None, 1, 9), ("d8_r16", 2048, None, 8, 16),
-              ("ragged_rect", 2047, 3001, 4, 9)]
+              ("ragged_rect", 2047, 3001, 4, 9)] + WIDE_SHAPES
     fwd, worst = [], 0.0
     for fname, fam in FAMILIES.items():
         for accum in ("exact", "f32x3", "fast"):
@@ -836,6 +863,7 @@ def run_fused_checks(fm):
             "rel_err": check_fused_moments(fm, fam, D, N=N, R=R)}
            for fname, fam in FAMILIES.items() for N, D, R in MOMENT_SHAPES]
     return {"phase": "kernels_fused", "gram_matvec_fused": fwd, "fwd_tol": FUSED_FWD_TOL,
+            "wide_repeats_bit_for_bit": check_wide_repeat(fm),
             "unaligned_views_rel_err": check_fused_unaligned(fm),
             "gram_moments": bwd, "bwd_tol": FUSED_BWD_TOL,
             "max_fwd_rel_err": max(r["rel_err"] for r in fwd),
@@ -852,6 +880,12 @@ ITER_NLML_TOL = 2e-4
 ITER_GRAD_TOL = 2e-2
 # the float64 estimate against the exact NLML (float64 Cholesky) at the start
 ITER_SLQ_TOL = 0.1
+# the fused float32 model's predictive (latent) variance at the 256 points,
+# at the start parameters, against the same posterior's CG solved through
+# the float64 plain twin: max error relative to max|var|, ~10x the reading
+# on an H100 (2.2e-3; B5's wide kernel, R = 256, in all 48 products; 48 CG
+# steps are not converged here, so float32 rounding moves the solve)
+ITER_PRED_VAR_TOL = 2e-2
 
 
 def iterative_data(seed=0):
@@ -1041,7 +1075,45 @@ def run_iterative():
     rec["limits"]["slq_rel_err_at_start"] = ITER_SLQ_TOL
     check(rec["slq_rel_err_at_start"] <= ITER_SLQ_TOL,
           f"iterative: SLQ NLML {f64} vs exact {exact0}: rel {rec['slq_rel_err_at_start']}")
+    rec["predict_var_vs_f64"] = predict_var_vs_f64(X, Y, Xs)
     return models, Xs, rec
+
+
+def predict_var_vs_f64(X, Y, Xs):
+    """The fused float32 model's predictive (latent) variance at Xs, at the
+    start parameters, against the same posterior (noise, kernel, CG steps)
+    with every product of its CG through the float64 plain twin and K(X,
+    Xs) in float64: the wide kernel (R = n*) on the predict path."""
+    import torch
+    from gpy_tpu_torch.inference.iterative import cg_batched
+    from gpy_tpu_torch.ops import gram_matvec_fused as fm
+
+    m = iterative_model(X, Y, torch.float32, fused=True)
+    Xn = torch.tensor(Xs, dtype=torch.float32, device="cuda")
+    post = m.posterior
+    before = fm.matvec_launches
+    _, var32 = m._raw_predict(Xn)
+    launches = fm.matvec_launches - before
+    with torch.no_grad():
+        v = m.kern.variance.values.detach().double().reshape(1)
+        ls = m.kern.lengthscale.values.detach().double()
+        Xa, Xb = m.X.double() / ls, Xn.double() / ls
+        noise = post._noise.double()
+        Kx = fm._k_of_r2(0, fm._direct_r2(Xa, Xb), v)
+        sol = cg_batched(lambda V: fm.stationary_gram_matvec_plain(Xa, Xa, V, v, 0)
+                         + noise[:, None] * V, Kx, maxiter=post.max_cg)[0]
+        var64 = torch.clamp_min(v - torch.sum(Kx * sol, dim=0), 1e-12)[:, None]
+    check(var32.shape == var64.shape and bool(torch.isfinite(var32).all()),
+          "iterative predict: non-finite or misshapen variance")
+    rel = float((var32.double() - var64).abs().max() / var64.abs().max())
+    check(rel <= ITER_PRED_VAR_TOL,
+          f"iterative predict variance vs float64 twin: rel {rel} > {ITER_PRED_VAR_TOL}")
+    del m, Kx, sol
+    torch.cuda.empty_cache()
+    return {"n_pred": len(Xs), "max_cg": post.max_cg, "b5_launches": launches,
+            "rel_err": rel, "rel_tol": ITER_PRED_VAR_TOL,
+            "max_elementwise_rel_err": float(((var32.double() - var64).abs() / var64).max()),
+            "var_range_f64": [float(var64.min()), float(var64.max())]}
 
 
 def fused_matvec_bounds(N, M, D, R):
@@ -1061,9 +1133,11 @@ def fused_matvec_bounds(N, M, D, R):
             "bound_tc_ms": tc[tc_by] * 1e3, "bound_tc_by": tc_by, "bytes_ms": t_bytes * 1e3}
 
 
-# the main path's B5 and B6 instances: RBF, R chunk 9, DMAX 4; B6's kernel
-# by the profiler's name
+# the main path's B5 and B6 instances: RBF, R chunk 9, DMAX 4; B5's wide
+# instance (R > 16: a predict's CG at D = 4), RBF, DMAX 4; B6's kernel by
+# the profiler's name
 MAIN_B5_INSTANCE = "gram_matvec_tile_kernelILi0ELi9ELi4E"
+WIDE_B5_INSTANCE = "gram_matvec_tc_kernelILi0ELi4E"
 MAIN_B6_INSTANCE = "gram_moments_tile_kernelILi0ELi9ELi4E"
 B6_KERNEL = "gram_moments_tile_kernel<"
 
@@ -1160,8 +1234,11 @@ def iterative_times(models, Xs, fm, smi):
     rec = {"phase": "iterative_times", "nvidia_smi": smi,
            "gram_matvec_fused": [time_fused(fm, 9, reps=20, plain_reps=3),
                                  time_fused(fm, 16, reps=20, plain_reps=1),
-                                 time_fused(fm, 256, reps=3, plain_reps=2),
-                                 time_fused(fm, 1, reps=10, plain_reps=2)],
+                                 time_fused(fm, 256, reps=10, plain_reps=2),
+                                 time_fused(fm, 1, reps=10, plain_reps=2),
+                                 time_fused(fm, 17, reps=10, plain_reps=1),
+                                 time_fused(fm, 64, reps=10, plain_reps=1),
+                                 time_fused(fm, 1024, reps=5, plain_reps=1)],
            "gram_matvec_fused_timing": "ms: torch.profiler device time per launch; "
                                        "event_ms: CUDA events over the same launches",
            "gram_moments": [time_moments(fm)]}
@@ -6394,6 +6471,7 @@ def main() -> int:
     b2, b4 = (next(r for r in ctimes[k] if r["C"] == 8 and r["dtype"] == "float32")
               for k in ("block_chol", "block_chol_inv"))
     mv_all = itimes["gram_matvec_fused"]
+    wide = {t["R"]: t for t in mv_all if t["R"] > 16}
     emit({"kernels": [{
         "name": "rbf_gram", "route": "cuda", "source": "gpy_tpu_torch/csrc/rbf_gram.cu",
         "replaces": "gpy_tpu/ops/pallas_gram.py:55",
@@ -6452,6 +6530,17 @@ def main() -> int:
         "bound_ms": mv["bound_ms"], "bound_by": mv["bound_by"],
         "bound_tc_ms": mv["bound_tc_ms"], "bound_tc_by": mv["bound_tc_by"],
         "ptxas": ptxas_of(reports["gram_matvec_fused"], MAIN_B5_INSTANCE), "library_ms": None,
+        "wide": {"kernel": WIDE_B5_INSTANCE, "route": "wgmma m64n128k8 TF32, 3 passes",
+                 "shape": f"N={ITER_N}, D={ITER_D}, R=256 (predict at {ITER_PRED} points)",
+                 "ms": wide[256]["ms"], "event_ms": wide[256]["event_ms"],
+                 "plain_ms": wide[256]["plain_ms"], "bound_ms": wide[256]["bound_ms"],
+                 "bound_by": wide[256]["bound_by"], "bound_tc_ms": wide[256]["bound_tc_ms"],
+                 "bound_tc_by": wide[256]["bound_tc_by"],
+                 "ms_by_R": {f"R{R}": t["ms"] for R, t in wide.items()},
+                 "bound_tc_ms_by_R": {f"R{R}": t["bound_tc_ms"] for R, t in wide.items()},
+                 "launches_per_predict": iter_rec["predict_var_vs_f64"]["b5_launches"],
+                 "predict_var_rel_err_vs_f64": iter_rec["predict_var_vs_f64"]["rel_err"],
+                 "ptxas": ptxas_of(reports["gram_matvec_fused"], WIDE_B5_INSTANCE)},
     }, {
         "name": "gram_moments", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",

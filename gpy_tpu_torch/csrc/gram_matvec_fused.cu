@@ -38,11 +38,21 @@
 // thread forms a 4x4 block of K in registers, and contracts it with the
 // tile's V rows (staged in shared memory with row stride RC + 1, so the
 // reads are conflict-free) into a 4 x RC accumulator, RC the smallest of 1,
-// 9, 16 that holds R (a wide variant, below, takes R > 16). After the last
-// tile the 16 threads that share rows sum their accumulators with warp
-// shuffles, and each output entry is written once: no atomics, and the
-// result does not depend on scheduling. Every kernel here contracts in
-// float32 FFMA, whatever the reference's accum mode.
+// 9, 16 that holds R. After the last tile the 16 threads that share rows
+// sum their accumulators with warp shuffles, and each output entry is
+// written once: no atomics, and the result does not depend on scheduling.
+//
+// B5 for R > 16 (a predict's n* right-hand sides), any D, is the
+// tensor-core kernel gram_matvec_tc_kernel below: K formed once per block
+// of 128 rows and 128 columns of R (twice at R = 256) by producer warps on
+// the SIMT cores, split into TF32 hi and lo, and contracted with V's split
+// tile in 3xTF32 on wgmma by consumer warps, each tile's product promoted
+// once into float32 running sums.
+//
+// Which contraction runs does not depend on the reference's accum mode
+// ("exact", "f32x3", "fast"): R <= 16 contracts in float32 FFMA, R > 16 in
+// 3xTF32 with per-tile promotion, each at least as accurate as the
+// reference's 3-pass bfloat16 "f32x3" and 1-pass "fast".
 //
 // B6 for D <= 8 and R <= 16 (the main path) is the register-tile kernel
 // gram_moments_tile_kernel below, on B5's column walk. The chunk kernel
@@ -60,10 +70,10 @@
 // uses no fast-math flag and flushes no denormals, so this stays 0, not
 // inf * 0.
 //
-// What the chunk and wide kernels leave on the table: the tensor cores (the
-// contraction with V is a GEMM once R is large), TMA and a persistent
-// schedule, and re-staging of the row tile for every column tile; the
-// register-tile kernel takes the last.
+// What the chunk kernels leave on the table: the tensor cores, TMA and a
+// persistent schedule, and re-staging of the row tile for every column
+// tile; the register-tile kernel takes the last. Where the tensor-core
+// kernel's time goes: PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -230,105 +240,6 @@ gram_matvec_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
 #pragma unroll
     for (int c = 0; c < RC; ++c)
       if (c % kThreads == tx && c0 + c < r) out[row * r + c0 + c] = acc[a][c];
-  }
-}
-
-// B5 for R > 16: the block owns 64 rows and kWide right-hand-side columns.
-// Per column tile the K tile is formed as above and written to shared
-// memory once, then contracted with the tile's V rows as a small GEMM in
-// which each thread owns a 4x4 output block and reads 4 K and 4 V values
-// per column with two 16-byte loads; K is formed once per kWide columns of
-// R instead of once per 16.
-constexpr int kWide = 64;
-constexpr int kKStride = kTile + 4;  // rows of sK stay 16-byte aligned
-
-template <int FAM>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
-gram_matvec_wide_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
-                        const float* __restrict__ vmat, const float* __restrict__ var,
-                        float* __restrict__ out, int64_t n, int64_t m, int d, int r) {
-  __shared__ float sx[kChunk][kTile + 1];
-  __shared__ float sx2[kChunk][kTile + 1];
-  __shared__ __align__(16) float sk[kTile][kKStride];  // sk[j][i] = K(i, j)
-  __shared__ __align__(16) float sv[kTile][kWide];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kThreads + tx;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int c0 = blockIdx.y * kWide;
-  const float vv = var[0];
-
-  float acc[kPer][kPer];  // rows 4 ty + a, columns c0 + 4 tx + c
-#pragma unroll
-  for (int a = 0; a < kPer; ++a)
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) acc[a][c] = 0.0f;
-
-  for (int64_t col0 = 0; col0 < m; col0 += kTile) {
-    float kv[kPer][kPer];
-#pragma unroll
-    for (int a = 0; a < kPer; ++a)
-#pragma unroll
-      for (int b = 0; b < kPer; ++b) kv[a][b] = 0.0f;
-
-    for (int d0 = 0; d0 < d; d0 += kChunk) {
-      __syncthreads();  // the previous tile is done with sx, sx2, sk and sv
-      stage(sx, xs, row0, n, d0, d, tid);
-      stage(sx2, x2s, col0, m, d0, d, tid);
-      __syncthreads();
-      const int kn = min(kChunk, d - d0);
-      for (int k = 0; k < kn; ++k) {
-        float xa[kPer], xb[kPer];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a) xa[a] = sx[k][ty + a * kThreads];
-#pragma unroll
-        for (int b = 0; b < kPer; ++b) xb[b] = sx2[k][tx + b * kThreads];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a)
-#pragma unroll
-          for (int b = 0; b < kPer; ++b) {
-            const float diff = xa[a] - xb[b];
-            kv[a][b] = fmaf(diff, diff, kv[a][b]);
-          }
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) {
-      const bool col_ok = col0 + tx + b * kThreads < m;
-#pragma unroll
-      for (int a = 0; a < kPer; ++a)
-        sk[tx + b * kThreads][ty + a * kThreads] = col_ok ? k_of_r2<FAM>(kv[a][b], vv) : 0.0f;
-    }
-    for (int idx = tid; idx < kTile * kWide; idx += kBlock) {
-      const int j = idx / kWide;
-      const int c = idx % kWide;
-      const int64_t gj = col0 + j;
-      sv[j][c] = (gj < m && c0 + c < r) ? vmat[gj * r + c0 + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < kTile; ++j) {
-      const float4 k4 = *reinterpret_cast<const float4*>(&sk[j][kPer * ty]);
-      const float4 v4 = *reinterpret_cast<const float4*>(&sv[j][kPer * tx]);
-      const float ka[kPer] = {k4.x, k4.y, k4.z, k4.w};
-      const float vc[kPer] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-      for (int a = 0; a < kPer; ++a)
-#pragma unroll
-        for (int c = 0; c < kPer; ++c) acc[a][c] = fmaf(ka[a], vc[c], acc[a][c]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < kPer; ++a) {
-    const int64_t row = row0 + kPer * ty + a;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) {
-      const int col = c0 + kPer * tx + c;
-      if (col < r) out[row * r + col] = acc[a][c];
-    }
   }
 }
 
@@ -499,9 +410,9 @@ __global__ void gram_moments_reduce(const double* __restrict__ partial,
 // with shuffles in a fixed order. V is zero past M, so the ragged last tile
 // needs no mask. Each output entry is written once by one thread: no
 // atomics, and the result does not depend on scheduling. Every accum mode
-// runs this FFMA contraction: a 3xTF32 contraction on the tensor cores was
-// slower at R = 9 and moved the CG's NLML estimate past its limit
-// (PERF.md, the B5 findings).
+// runs this FFMA contraction at R <= 16: a 3xTF32 contraction on the tensor
+// cores, its sums never promoted, was slower at R = 9 and moved the CG's
+// NLML estimate past its limit (PERF.md, the B5 findings).
 constexpr int kTileRows = 128;  // rows a block: 8 warps x 16
 constexpr int kTileThreads = kTileRows / 16 * 32;
 
@@ -904,6 +815,451 @@ gram_moments_tile_kernel(const float* __restrict__ xs, const float* __restrict__
   block_sum(mom, partial + static_cast<int64_t>(blockIdx.x) * kMomStride, tid);
 }
 
+// B5 for R > 16 (the iterative predict's CG: R = n* right-hand sides),
+// redesigned for Hopper with the contraction on the tensor cores (wgmma).
+// One block owns 128 rows and 128 right-hand-side columns (grid.y walks R in
+// chunks of 128) and walks X2 and V in tiles of 32 columns (rows of V). Its
+// 512 threads are four warpgroups with two roles, handing tiles over through
+// shared memory (K's fragments and V's split tiles double-buffered, V's raw
+// rows in three buffers) and named barriers, so that forming K runs beside
+// the tensor cores:
+//  - the two producer warpgroups (warps 8-15; setmaxnreg down to 72
+//    registers) copy V's rows of tile j + 2 into shared memory with cp.async
+//    (16 bytes where R % 4 == 0, else 4; the ragged edges zero-filled) and
+//    load X2's coordinates of tile j + 2 while they form K of tile j, a
+//    tile ahead of the consumers (FULL: K formed and V's rows landed; EMPTY:
+//    the consumers are done with that buffer's tile and with the raw rows
+//    the next copy lands in). Producer warp
+//    p forms rows 16 p .. 16 p + 15, each thread the four entries of an
+//    m16n8k8 A fragment (rows g, g + 8 by columns t, t + 4 of each 8-column
+//    step, g = lane / 4, t = lane % 4), both sides' coordinates times the
+//    family's folded constant and padded to DMAX in shared memory (DMAX 0
+//    reads them through L1 for D > 8), r2 a sum of direct differences, K =
+//    v ex2(.) with the multiply by v last (k_of_r2_fast, so a square Gram's
+//    diagonal is exactly v). K and V are split into hi = tf32(x) (round to
+//    nearest, ties away) and lo = x - hi (exact; the tensor cores read its
+//    top 19 bits); K is written in its A fragments' order (one 16-byte store
+//    and load a lane, so without bank conflicts);
+//  - the two consumer warpgroups (warps 0-7; setmaxnreg up to 184): warpgroup
+//    c owns rows 64 c .. 64 c + 63 and all 128 columns. Per tile it loads its
+//    K fragments into registers and issues, for each 8-column step, lo.hi,
+//    hi.lo and hi.hi (wgmma.mma_async m64n128k8, TF32, A from registers, B
+//    from shared memory read once for the warpgroup, float32 accumulators;
+//    lo.lo dropped: 3xTF32) into a fresh accumulator. While those run, the
+//    consumers split tile j + 1's V and transpose it into wgmma's K-major
+//    core matrices (8 columns of V by 4 rows, 128 bytes; a warp writes one,
+//    a lane a float, reading the raw rows with a stride 8 past a multiple of
+//    32 banks, so without bank conflicts). Then they wait for the tensor
+//    cores and add the fresh sum once, in round-to-nearest FADD, into the
+//    float32 running sum (promotion: the tensor cores' own accumulation order
+//    and rounding reach at most 12 products of 8 deep).
+// Each output entry is written once by one thread: no atomics, and the
+// result does not depend on scheduling. Every accum mode runs this kernel.
+//
+// Why K is formed once per 128 columns of R and not per 256: a block of 128
+// rows by 256 columns needs two float32 accumulators (fresh and running) of
+// 128 x 256 entries, the whole register file; a block of 64 rows by 256
+// columns (in tiles of 16 columns, for shared memory) stages each column of
+// V for twice as many row blocks and ran 25.4 ms at R = 256 against this
+// layout's 17.1-17.5 on an H100 (PERF.md).
+//
+// Bound on an H100 SXM at N = M = 50,000, D = 4, R = 256: 3 passes of 2R
+// operations an entry on the tensor cores at 495 TFLOP/s TF32 is 7.76 ms; K's
+// 3D + 3 at the float32 peak 0.56 ms.
+constexpr int kWideRows = 128;       // rows a block: 8 m-blocks of 16
+constexpr int kWideCols = 128;       // right-hand-side columns a block
+constexpr int kWideDepth = 32;       // columns of X2 (rows of V) a tile
+constexpr int kWideSteps = kWideDepth / 8;
+constexpr int kConsumers = 256;      // 2 warpgroups of 64 rows
+constexpr int kProducers = 256;      // 8 warps
+constexpr int kWideThreads = kConsumers + kProducers;
+constexpr int kRawStride = kWideCols + 8;  // raw V rows: the transposing reads
+                                           // (rows l % 4, columns l / 4) miss no bank
+constexpr int kKFrag = kWideRows * kWideDepth * 2;  // floats of a K tile, hi and lo
+constexpr int kVTile = kWideDepth * kWideCols;      // floats of V's hi (or lo) tile
+constexpr int kRawV = kWideDepth * kRawStride;
+constexpr int kTileX = kWideDepth * 8;    // X2's coordinates of a tile, stride DMAX
+constexpr int kRowX = kWideRows * 8;      // the block's rows' coordinates, stride DMAX
+constexpr int kRawBufs = 3;  // V's raw rows: tile j + 2 lands while j + 1 is read
+constexpr int kWideSmem = static_cast<int>(sizeof(float)) *
+                          (2 * (kKFrag + 2 * kVTile + kTileX) + kRawBufs * kRawV + kRowX);
+static_assert(kProducers / 32 == kWideRows / 16, "a producer warp forms one m-block");
+static_assert(kProducers == kWideDepth * 8, "a producer thread loads one coordinate of X2");
+// V's tile in shared memory, for each 8-column step: 16 groups of 8 columns
+// (N) by 2 groups of 4 rows (K), one 128-byte core matrix each, K-major: the
+// descriptor's leading byte offset steps K (128 bytes), its stride byte
+// offset N (256 bytes), both in 16-byte units
+constexpr uint64_t kDescLBO = 128 / 16;
+constexpr uint64_t kDescSBO = 256 / 16;
+
+// named barriers (0 is __syncthreads): the producers among themselves, each
+// buffer's FULL (producers arrive, consumers wait) and EMPTY (consumers
+// arrive, producers wait), and the consumers among themselves
+constexpr int kBarProducers = 1;
+constexpr int kBarFull = 2;   // + buffer
+constexpr int kBarEmpty = 4;  // + buffer
+constexpr int kBarConsumers = 6;
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+
+// x = hi + lo: hi = tf32(x) rounded to nearest, ties away from zero (as
+// cvt.rna.tf32.f32, without its NaN test: two integer operations), lo =
+// x - hi exact; the tensor cores read lo's top 19 bits
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  lo = x - hi;
+}
+
+// d (+)= A B on a warpgroup's 64 x 128 tile, 8 deep (wgmma, TF32): A from
+// registers (each warp its 16 rows, mma.sync's m16n8k8 A fragment), B from
+// shared memory through `desc`; d[4 j + q]: row g + 8 (q / 2), column
+// 8 j + 2 t + q % 2 of the warp's rows. `accumulate` 0 starts a fresh sum.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// a shared-memory matrix descriptor of V's hi or lo tile of one step: no
+// swizzle, K-major core matrices
+__device__ __forceinline__ uint64_t b_desc(const float* tile) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  return ((addr & 0x3ffff) >> 4) | (kDescLBO << 16) | (kDescSBO << 32);
+}
+
+// keeps the compiler from moving a register's reads or writes across the
+// wgmma fence, commit and wait around it
+__device__ __forceinline__ void fence_operand(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+
+__device__ __forceinline__ void copy_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" :: "r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" :: "r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The producer warpgroup's walk: copies, forms and splits every tile.
+template <int FAM, int DMAX>
+__device__ __forceinline__ void wide_produce(const float* __restrict__ xs,
+                                             const float* __restrict__ x2s,
+                                             const float* __restrict__ vmat, float vv,
+                                             float* kf, float* rawv, float* tx,
+                                             float* rx, int64_t row0, int c0, int live,
+                                             int64_t n, int64_t m, int d, int r, int64_t tiles) {
+  constexpr float scale = kCoordScale<FAM>;
+  constexpr int kDX = DMAX > 0 ? DMAX : 1;
+  const int p = threadIdx.x - kConsumers;  // 0 .. kProducers - 1
+  const int lane = p % 32;
+  const int warp = p / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  if (DMAX > 0 && p < kWideRows) {  // the block's rows' folded coordinates
+    const int64_t row = row0 + p;
+#pragma unroll
+    for (int k = 0; k < kDX; ++k)
+      rx[p * kDX + k] = (row < n && k < d) ? __fmul_rn(scale, xs[row * d + k]) : 0.0f;
+  }
+  // V's rows of a tile: the 16-byte path copies columns 4 (p % 32) .. + 3 of
+  // rows p / 32 + 8 i, the 4-byte path column p % 128 of rows p / 128 + 2 i
+  const bool wide_copy = r % 4 == 0;
+  const int vc = wide_copy ? (p % 32) * 4 : p % kWideCols;
+  const int vj = wide_copy ? p / 32 : p / kWideCols;
+  const bool v_in = vc < live;
+  const float* v_row = vmat + static_cast<int64_t>(vj) * r + c0 + vc;  // in tile 0
+  const int64_t v_step = static_cast<int64_t>(wide_copy ? 8 : 2) * r;   // between copies
+  float* v_dst = rawv + vj * kRawStride + vc;
+  auto fetch = [&](int64_t tile) {  // an empty group past the last tile
+    if (tile < tiles) {
+      const int64_t left = m - tile * kWideDepth;
+      const int rows = static_cast<int>(left < kWideDepth ? left : kWideDepth) - vj;
+      const float* src = v_row + tile * kWideDepth * static_cast<int64_t>(r);
+      float* dst = v_dst + static_cast<int>(tile % kRawBufs) * kRawV;
+      if (wide_copy) {
+#pragma unroll
+        for (int i = 0; i < kWideDepth / 8; ++i, src += v_step) {
+          const bool in = v_in && 8 * i < rows;
+          copy_async16(dst + 8 * i * kRawStride, in ? src : vmat, in ? 16 : 0);
+        }
+      } else {
+#pragma unroll 4
+        for (int i = 0; i < kWideDepth / 2; ++i, src += v_step) {
+          const bool in = v_in && 2 * i < rows;
+          copy_async4(dst + 2 * i * kRawStride, in ? src : vmat, in ? 4 : 0);
+        }
+      }
+    }
+    copy_async_commit();
+  };
+  // X2's coordinate (tile's column p / DMAX, dimension p % DMAX), folded
+  const bool x_in = DMAX > 0 && p < kWideDepth * kDX && p % kDX < d;
+  const float* x_src = x2s + static_cast<int64_t>(p / kDX) * d + p % kDX;  // in tile 0
+  auto coord = [&](int64_t tile) {
+    return (x_in && tile * kWideDepth + p / kDX < m)
+               ? __fmul_rn(scale, x_src[tile * kWideDepth * static_cast<int64_t>(d)]) : 0.0f;
+  };
+  auto put_coord = [&](int64_t tile, float x) {
+    if (DMAX > 0 && p < kWideDepth * kDX) tx[static_cast<int>(tile % 2) * kTileX + p] = x;
+  };
+
+  // K of m-block `warp` into the tile's A fragments, split hi / lo
+  auto form = [&](int64_t tile) {
+    const int buf = static_cast<int>(tile % 2);
+    {
+      const int mb = warp;
+      float* kt = kf + buf * kKFrag + mb * (kWideSteps * 256) + lane * 4;
+      float xa[kDX], xb[kDX];  // rows 16 mb + g and + 8
+      if constexpr (DMAX > 0) {
+        const float4* r4 = reinterpret_cast<const float4*>(rx);
+#pragma unroll
+        for (int e = 0; e < DMAX / 4; ++e) {
+          const float4 u = r4[(mb * 16 + g) * (DMAX / 4) + e];
+          const float4 w = r4[(mb * 16 + g + 8) * (DMAX / 4) + e];
+          xa[4 * e] = u.x; xa[4 * e + 1] = u.y; xa[4 * e + 2] = u.z; xa[4 * e + 3] = u.w;
+          xb[4 * e] = w.x; xb[4 * e + 1] = w.y; xb[4 * e + 2] = w.z; xb[4 * e + 3] = w.w;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kWideSteps; ++s) {
+        const int ca = s * 8 + t;  // the tile's columns t and t + 4 of step s
+        const int cb = ca + 4;
+        float ka[4];  // (a, ca), (b, ca), (a, cb), (b, cb): a0..a3 of the A fragment
+        if constexpr (DMAX > 0) {
+          const float4* x4 = reinterpret_cast<const float4*>(tx + buf * kTileX);
+          float ya[DMAX], yb[DMAX];
+#pragma unroll
+          for (int e = 0; e < DMAX / 4; ++e) {
+            const float4 u = x4[ca * (DMAX / 4) + e];
+            const float4 w = x4[cb * (DMAX / 4) + e];
+            ya[4 * e] = u.x; ya[4 * e + 1] = u.y; ya[4 * e + 2] = u.z; ya[4 * e + 3] = u.w;
+            yb[4 * e] = w.x; yb[4 * e + 1] = w.y; yb[4 * e + 2] = w.z; yb[4 * e + 3] = w.w;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float* x = (q & 1) ? xb : xa;
+            const float* y = (q & 2) ? yb : ya;
+            float r2 = 0.0f;
+#pragma unroll
+            for (int e = 0; e < DMAX; ++e) {
+              const float diff = x[e] - y[e];
+              r2 = fmaf(diff, diff, r2);
+            }
+            ka[q] = k_of_r2_fast<FAM>(r2, vv);
+          }
+        } else {  // D > 8: both sides' coordinates through L1, indices clamped
+          const int64_t ia = row0 + mb * 16 + g;
+          const int64_t ib = ia + 8;
+          const int64_t ja = tile * kWideDepth + ca;
+          const int64_t jb = ja + 4;
+          const float* pa = xs + (ia < n ? ia : n - 1) * d;
+          const float* pb = xs + (ib < n ? ib : n - 1) * d;
+          const float* qa = x2s + (ja < m ? ja : m - 1) * d;
+          const float* qb = x2s + (jb < m ? jb : m - 1) * d;
+          float r2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int e = 0; e < d; ++e) {
+            const float xa_e = __ldg(pa + e), xb_e = __ldg(pb + e);
+            const float ya_e = __ldg(qa + e), yb_e = __ldg(qb + e);
+            const float d0 = xa_e - ya_e, d1 = xb_e - ya_e, d2 = xa_e - yb_e, d3 = xb_e - yb_e;
+            r2[0] = fmaf(d0, d0, r2[0]);
+            r2[1] = fmaf(d1, d1, r2[1]);
+            r2[2] = fmaf(d2, d2, r2[2]);
+            r2[3] = fmaf(d3, d3, r2[3]);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) ka[q] = k_of_r2_fast<FAM>(r2[q] * (scale * scale), vv);
+        }
+        float4 hi, lo;
+        split_tf32(ka[0], hi.x, lo.x);
+        split_tf32(ka[1], hi.y, lo.y);
+        split_tf32(ka[2], hi.z, lo.z);
+        split_tf32(ka[3], hi.w, lo.w);
+        *reinterpret_cast<float4*>(kt + s * 256) = hi;
+        *reinterpret_cast<float4*>(kt + s * 256 + 128) = lo;
+      }
+    }
+  };
+
+  // V's rows land two tiles ahead (three raw buffers; the consumers read
+  // tile j + 1's while they contract j) and X2's coordinates are loaded two
+  // ahead and stored one ahead
+  put_coord(0, coord(0));
+  fetch(0);
+  fetch(1);
+  float x_next = coord(1);
+  for (int64_t tile = 0; tile < tiles; ++tile) {
+    // tile's V rows have landed and its coordinates are stored; every
+    // producer is done with tile - 1's raw rows and coordinates
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    bar_sync(kBarProducers, kProducers);
+    const int buf = static_cast<int>(tile % 2);
+    // the consumers are done with tile - 2 and with tile - 1's raw rows,
+    // where fetch(tile + 2) lands (at tile 1: tile 0's, read before their walk)
+    if (tile >= 1) bar_sync(kBarEmpty + buf, kWideThreads);
+    form(tile);
+    put_coord(tile + 1, x_next);
+    bar_arrive(kBarFull + buf, kWideThreads);  // K's fragments and V's rows of tile
+    fetch(tile + 2);
+    x_next = coord(tile + 2);
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+template <int FAM, int DMAX>
+__global__ void __launch_bounds__(kWideThreads, 1)
+gram_matvec_tc_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
+                      const float* __restrict__ vmat, const float* __restrict__ var,
+                      float* __restrict__ out, int64_t n, int64_t m, int d, int r) {
+  extern __shared__ __align__(16) float wide_smem[];
+  float* kf = wide_smem;            // [2][m-block][step][hi, lo][lane][4]
+  float* vb = kf + 2 * kKFrag;      // [2][hi, lo][step][16][2][32]: V's core matrices
+  float* rawv = vb + 4 * kVTile;    // [kRawBufs][kWideDepth][kRawStride]
+  float* tx = rawv + kRawBufs * kRawV;  // [2][kWideDepth][DMAX], folded
+  float* rx = tx + 2 * kTileX;      // [kWideRows][DMAX], folded
+
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kWideRows;
+  const int c0 = blockIdx.y * kWideCols;
+  const int live = min(kWideCols, r - c0);  // this block's columns of R
+  const int64_t tiles = (m + kWideDepth - 1) / kWideDepth;
+  const float vv = var[0];
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;" ::: "memory");
+    wide_produce<FAM, DMAX>(xs, x2s, vmat, vv, kf, rawv, tx, rx, row0, c0, live, n, m, d, r,
+                            tiles);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 184;" ::: "memory");
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int mb = warp;  // warpgroup warp / 4, its rows 16 warp .. 16 warp + 15
+    float run[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) run[i] = part[i] = 0.0f;
+    // V's tile into wgmma's layout: core matrix c = (step s, column group
+    // cn, row group ck) holds V[8 s + 4 ck + l % 4][8 cn + l / 4] at float l
+    // (lanes read the raw rows without bank conflicts); warp w writes 16 of
+    // the tile's 128
+    const float* rv_lane = rawv + (lane % 4) * kRawStride + lane / 4;
+    auto transpose = [&](int64_t tile) {
+      const float* rv = rv_lane + static_cast<int>(tile % kRawBufs) * kRawV;
+      float* vt = vb + static_cast<int>(tile % 2) * 2 * kVTile + lane;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int c = warp * 16 + i;
+        const int s = c / 32, cn = (c % 32) / 2, ck = c % 2;
+        float hi, lo;
+        split_tf32(rv[(8 * s + 4 * ck) * kRawStride + 8 * cn], hi, lo);
+        vt[c * 32] = hi;
+        vt[kVTile + c * 32] = lo;
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for wgmma's reads
+    };
+
+    if (tiles > 0) {
+      bar_sync(kBarFull, kWideThreads);
+      transpose(0);
+      // tile 0's raw rows are read: the producers' copy of tile 3 may land there
+      if (tiles > 1) bar_arrive(kBarEmpty + 1, kWideThreads);
+      bar_sync(kBarConsumers, kConsumers);
+    }
+    for (int64_t tile = 0; tile < tiles; ++tile) {
+      // tile's K is formed and its V transposed
+      const int buf = static_cast<int>(tile % 2);
+      // the warp's K fragments of the tile's steps
+      uint32_t ah[kWideSteps][4], al[kWideSteps][4];
+      const float* kt = kf + buf * kKFrag + mb * (kWideSteps * 256) + lane * 4;
+#pragma unroll
+      for (int s = 0; s < kWideSteps; ++s) {
+        const float4 h = *reinterpret_cast<const float4*>(kt + s * 256);
+        const float4 l = *reinterpret_cast<const float4*>(kt + s * 256 + 128);
+        ah[s][0] = __float_as_uint(h.x); ah[s][1] = __float_as_uint(h.y);
+        ah[s][2] = __float_as_uint(h.z); ah[s][3] = __float_as_uint(h.w);
+        al[s][0] = __float_as_uint(l.x); al[s][1] = __float_as_uint(l.y);
+        al[s][2] = __float_as_uint(l.z); al[s][3] = __float_as_uint(l.w);
+      }
+      const float* vh = vb + buf * 2 * kVTile;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_operand(part[i]);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int s = 0; s < kWideSteps; ++s) {
+        const uint64_t bh = b_desc(vh + s * (kVTile / kWideSteps));
+        const uint64_t bl = b_desc(vh + kVTile + s * (kVTile / kWideSteps));
+        wgmma_tf32(part, al[s], bh, s > 0);  // a fresh sum at the tile's first step
+        wgmma_tf32(part, ah[s], bl, 1);
+        wgmma_tf32(part, ah[s], bh, 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      if (tile + 1 < tiles) {  // the next tile's V, while the tensor cores run
+        bar_sync(kBarFull + (buf ^ 1), kWideThreads);
+        transpose(tile + 1);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_operand(part[i]);
+      if (tile + 2 < tiles) bar_arrive(kBarEmpty + buf, kWideThreads);  // the producers refill it
+      bar_sync(kBarConsumers, kConsumers);  // the next V is whole; this one is read
+      // promotion
+#pragma unroll
+      for (int i = 0; i < 64; ++i) run[i] = __fadd_rn(run[i], part[i]);
+    }
+
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int64_t row = row0 + mb * 16 + g + (q >= 2 ? 8 : 0);
+        const int col = c0 + 8 * j + 2 * t + (q & 1);
+        if (row < n && col < r) out[row * r + col] = run[4 * j + q];
+      }
+  }
+}
+
+template <int FAM, int DMAX>
+int launch_wide(const float* xs, const float* x2s, const float* v, const float* vmat,
+                float* out, int64_t n, int64_t m, int d, int r, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(gram_matvec_tc_kernel<FAM, DMAX>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             kWideSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>((n + kWideRows - 1) / kWideRows),
+                  static_cast<unsigned>((r + kWideCols - 1) / kWideCols));
+  gram_matvec_tc_kernel<FAM, DMAX><<<grid, kWideThreads, kWideSmem, stream>>>(
+      xs, x2s, vmat, v, out, n, m, d, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int FAM, int RC, int DMAX>
 int launch_tile(const float* xs, const float* x2s, const float* v, const float* vmat,
                 float* out, int64_t n, int64_t m, int d, int r, cudaStream_t stream) {
@@ -932,10 +1288,11 @@ int launch_matvec(const float* xs, const float* x2s, const float* v, const float
   return static_cast<int>(cudaGetLastError());
 }
 
-// D <= 8 and R <= 16: the register-tile kernel. Otherwise the chunk
+// R <= 16: for D <= 8 the register-tile kernel, otherwise the chunk
 // kernel, its R chunk 1 for a vector, else the smaller of 9 and 16 that
-// holds R; above 16, chunks of kWide through the wide kernel. Nine is the
-// CG width of the N = 50k configuration (1 target + 8 probes).
+// holds R. Nine is the CG width of the N = 50k configuration (1 target + 8
+// probes). R > 16 (a predict's n* columns): the tensor-core kernel, its
+// rows' coordinates in registers for D <= 8.
 template <int FAM>
 int matvec_family(const float* xs, const float* x2s, const float* v, const float* vmat,
                   float* out, int64_t n, int64_t m, int d, int r, cudaStream_t s) {
@@ -944,11 +1301,9 @@ int matvec_family(const float* xs, const float* x2s, const float* v, const float
   if (r <= 1) return launch_matvec<FAM, 1>(xs, x2s, v, vmat, out, n, m, d, r, s);
   if (r <= 9) return launch_matvec<FAM, 9>(xs, x2s, v, vmat, out, n, m, d, r, s);
   if (r <= 16) return launch_matvec<FAM, 16>(xs, x2s, v, vmat, out, n, m, d, r, s);
-  const dim3 grid(static_cast<unsigned>((n + kTile - 1) / kTile),
-                  static_cast<unsigned>((r + kWide - 1) / kWide));
-  gram_matvec_wide_kernel<FAM><<<grid, dim3(kThreads, kThreads), 0, s>>>(
-      xs, x2s, vmat, v, out, n, m, d, r);
-  return static_cast<int>(cudaGetLastError());
+  if (d <= 4) return launch_wide<FAM, 4>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  if (d <= 8) return launch_wide<FAM, 8>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  return launch_wide<FAM, 0>(xs, x2s, v, vmat, out, n, m, d, r, s);
 }
 
 template <int FAM, int RC, int DMAX>

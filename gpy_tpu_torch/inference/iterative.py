@@ -166,7 +166,9 @@ class IterativeGaussianInference(LatentFunctionInference):
       kernels only. Deviation: the reference engages it on a TPU only and
       falls back to the blockwise path elsewhere; here it runs on the card
       (kernels B5/B6) and on the CPU (their plain twins).
-    fused_accum: "f32x3" | "exact" | "fast" (all float32 FFMA on the card).
+    fused_accum: "f32x3" | "exact" | "fast" (on the card all run one
+      contraction: float32 FFMA in the NLML's CG, 3xTF32 with per-tile
+      promotion on the tensor cores in a predict's CG at n* > 16).
     fast_grad: "auto" computes the RBF gradient surrogate from the stored
       Gram (one extra sweep) when eligible; False always rebuilds.
 

@@ -14,10 +14,14 @@ tensor launches the kernel or raises.
 Like the reference, both kernels compute in float32 (X / lengthscale and V
 are cast) and the wrapper adds noise * V and casts back to V's dtype. The
 accum modes of the reference ("exact" 6-pass, "f32x3" 3-pass, "fast"
-1-pass bf16 on the TPU's matrix unit) all run as float32 FFMA here, which is
-at least as accurate as each; the string is still validated. (A 3xTF32
-contraction on the tensor cores for "f32x3" and "fast" was measured and
-dropped: PERF.md, the B5 findings.)
+1-pass bf16 on the TPU's matrix unit) all run the same contraction here;
+the string is still validated. B5 contracts in float32 FFMA for R <= 16
+(the CG of an NLML: 1 + n_probes columns; a 3xTF32 contraction there was
+measured and dropped: PERF.md, the B5 findings) and on the tensor cores for
+R > 16 (a predict's n* columns): 3xTF32 (K and V split into TF32 hi and lo,
+lo.hi + hi.lo + hi.hi), each 32-column tile's sum promoted once into a
+float32 running sum. Both are at least as accurate as the reference's
+3-pass "f32x3" and 1-pass "fast"; B6 contracts in FFMA.
 
 Deviation: the reference forms r2 by the expansion |x|^2 + |x'|^2 - 2 x.x'
 above D = 8 (its :178-184); here every D sums direct differences, so a

@@ -2,7 +2,8 @@
 """Probes the fused Gram-matvec kernel B5 and its gradient moments B6 on one CUDA card.
 
     python3 matvec_probe.py [--other LABEL=path/to/gram_matvec_fused.cu ...] [--phases]
-                            [--chunk-phases LABEL] [--no-times]
+                            [--chunk-phases LABEL] [--no-times] [--only wide]
+                            [--predict-other LABEL=path/to/checkout ...]
 
 Builds gpy_tpu_torch/csrc/gram_matvec_fused.cu and each --other source
 (another version with the same C interface, e.g. the parent commit's,
@@ -11,45 +12,67 @@ gpy_tpu_torch/_build/, all at once, then prints one JSON line each for:
   - ptxas' registers, shared memory and spills of every kernel instance;
   - the SASS of every B5 and B6 instance (cuobjdump): its instruction
     count, and the loops of the main path's instances (MAIN_PATH_SASS) by
-    opcode (their listings go to chiprun_out/);
+    opcode (their listings go to chiprun_out/), with the tensor-core
+    instructions (HMMA, HGMMA) of B5's wide instance (R > 16) by their full
+    opcode;
+  - B5's wide kernel at chip_smoke.WIDE_SHAPES and at N=50,000, D=4 for R in
+    WIDE_R against the plain twin, and a second launch at (4096, 4, 256)
+    bit for bit against the first;
   - B6 of every version on N=50,000 inputs against the float64 plain twin
     (within chip_smoke.FUSED_BWD_TOL_50K), and this version's bit for bit
     against a second launch of itself;
   - with --phases, copies of the source (PHASE_COPIES for B5,
-    MOMENTS_PHASE_COPIES for B6) join the --other versions: phases deleted
-    (results wrong, not checked), where a launch's time goes, and design
-    alternatives (results right), what each element pays; with
+    MOMENTS_PHASE_COPIES for B6, WIDE_PHASE_COPIES for B5's wide kernel,
+    timed at R=256) join the --other
+    versions: phases deleted (results wrong, not checked), where a launch's
+    time goes, and design alternatives, what each element pays; with
     --chunk-phases LABEL, CHUNK_PHASE_COPIES of the --other LABEL's source
     (the parent's chunk kernel) join them too;
   - unless --no-times, at chip_smoke.py's main-path shape (N=50,000, D=4,
-    RBF) for R = 1, 9 and 16: the profiler's device time per launch of
-    every version's B5 and B6 (B6's reduce beside it), in turns (others,
-    this, this, others reversed); each version's error against the plain
-    twin (B6: the float64 one); the bounds.
+    RBF) for R = 1, 9 and 16 and B5's wide R = 17, 64, 256 and 1024: the
+    profiler's device time per launch of every version's B5 and B6 (B6's
+    reduce beside it; B6 at R = 1, 9, 16), in turns (others, this, this,
+    others reversed); each version's error against the plain twin (B6: the
+    float64 one); the bounds. Then this version's chunk kernels (CHUNK_TIMES:
+    B5 at D = 12, B6 at D = 12 and at R = 17) by device time, with bounds;
+    --only wide takes WIDE_PHASE_COPIES alone in place of --phases' copies
+    and times B5's wide kernel only;
+  - with --predict-other, the fused N=50,000 model's predict at 256 points
+    (48 CG launches of B5 at R = 256) by host time, in a fresh process on
+    each checkout in turns (others, this, this, others reversed).
 Exits non-zero on a failed check or without a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import re
+import subprocess
 import sys
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import chip_smoke as s
-from chol_probe import build_other, phase_copies, ptxas_lines, sass
+from chol_probe import OUT_DIR, build_other, phase_copies, ptxas_lines, sass
 
 NAME = "gram_matvec_fused"
 TIME_R = (1, 9, 16)
+WIDE_R = (17, 64, 256, 1024)
 # mangled-name fragments of the main path's instances (family RBF): B5's
 # chunk kernel at R = 9 (a parent's main path), its register-tile kernel at
-# R = 9, 1, 16; B6's chunk kernel (the same), its register-tile kernel at
-# R = 9, 1, 16
+# R = 9, 1, 16, its wide kernel (R > 16, D <= 4: a predict's CG) and the
+# parent's; B6's chunk kernel (the same), its register-tile kernel at R = 9,
+# 1, 16
 MAIN_PATH_SASS = ("gram_matvec_kernelILi0ELi9EE", s.MAIN_B5_INSTANCE,
                   "gram_matvec_tile_kernelILi0ELi1ELi4E", "gram_matvec_tile_kernelILi0ELi16ELi4E",
+                  s.WIDE_B5_INSTANCE, "gram_matvec_wide_kernelILi0EE",
                   "gram_moments_kernelILi0EE", s.MAIN_B6_INSTANCE,
                   "gram_moments_tile_kernelILi0ELi1ELi4E", "gram_moments_tile_kernelILi0ELi16ELi4E")
+# the chunk kernels' shapes at N=50,000 (kernel, D, R): B5's at D > 8, B6's
+# at D > 8 and at R > 16; none is on a main path
+CHUNK_TIMES = (("gram_matvec", 12, 9), ("gram_moments", 12, 9), ("gram_moments", 4, 17))
 # the profiler's names of B6's kernel at D=4: the register-tile kernel, or
 # the chunk kernel of a source that has none (the parent's)
 B6_TILE, B6_CHUNK = s.B6_KERNEL, "gram_moments_kernel<"
@@ -104,6 +127,29 @@ MOMENTS_PHASE_COPIES = {
 }
 
 
+# Copies of the checkout's source that cut B5's wide kernel (--phases or
+# --only wide; timed at R=256 only; results wrong, not checked). Phases
+# deleted: K left as r2 (no exponential), the contraction's wgmma replaced
+# by one FADD a step, one TF32 pass (hi.hi) in place of three, and V's core
+# matrices written without their hi / lo split. A check of the layout: the
+# descriptor's two byte offsets swapped (wrong results if the layout is read
+# as intended).
+_WIDE_PASSES = ("        wgmma_tf32(part, al[s], bh, s > 0);  // a fresh sum at the tile's first step\n"
+                "        wgmma_tf32(part, ah[s], bl, 1);\n"
+                "        wgmma_tf32(part, ah[s], bh, 1);\n")
+_WIDE_VSPLIT = "split_tf32(rv[(8 * s + 4 * ck) * kRawStride + 8 * cn], hi, lo);"
+_WIDE_DESC = "constexpr uint64_t kDescLBO = 128 / 16;\nconstexpr uint64_t kDescSBO = 256 / 16;"
+WIDE_PHASE_COPIES = {
+    "wide_no_exp": [("ka[q] = k_of_r2_fast<FAM>(r2, vv);", "ka[q] = r2;")],
+    "wide_no_mma": [(_WIDE_PASSES,
+                     "        part[s] += __uint_as_float(al[s][0] ^ ah[s][1] ^ (bh + bl));\n")],
+    "wide_one_pass": [(_WIDE_PASSES, "        wgmma_tf32(part, ah[s], bh, s > 0);\n")],
+    "wide_no_vsplit": [(_WIDE_VSPLIT, "hi = lo = rv[(8 * s + 4 * ck) * kRawStride + 8 * cn];")],
+    "wide_desc_swap": [(_WIDE_DESC, "constexpr uint64_t kDescLBO = 256 / 16;\n"
+                                    "constexpr uint64_t kDescSBO = 128 / 16;")],
+}
+
+
 def launchers(so, label):
     """B5 and B6 of a build, through its C interface."""
     import torch
@@ -134,6 +180,18 @@ def launchers(so, label):
         s.check(rc == 0, f"{label} gram_moments launch failed: {rc}")
         return out
     return matvec, moments
+
+
+def tensor_core_ops(label):
+    """The tensor-core instructions (HMMA, HGMMA) of B5's wide instance in a
+    version's SASS listing, by full opcode: the contraction's route."""
+    path = os.path.join(OUT_DIR, f"sass_matvec_{label}.txt")
+    if not os.path.exists(path):
+        return {}
+    parts = re.split(r"(?=\n\s*Function : )", open(path).read())
+    body = "".join(p for p in parts if "Function : " in p
+                   and s.WIDE_B5_INSTANCE in p.split("Function : ", 1)[1].split("\n", 1)[0])
+    return dict(Counter(re.findall(r"\b(HG?MMA[A-Z0-9_.]*)", body)))
 
 
 def moments_inputs(R):
@@ -172,13 +230,13 @@ def check_moments(fns, fm, unchecked):
             "this_repeats_bit_for_bit": same, "moments": first.tolist()}
 
 
-def times(versions, fm):
+def times(versions, fm, rs):
     """Each version's device time per launch, in turns, and its error
-    against the plain twin, at N=50,000, D=4 for R in TIME_R."""
+    against the plain twin, at N=50,000, D=4 for R in `rs`."""
     import torch
 
     rows = []
-    for R in TIME_R:
+    for R in rs:
         X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, s.ITER_D, R, seed=11)
         Xs = (X / ls).contiguous()
         v1 = v.reshape(1)
@@ -193,8 +251,8 @@ def times(versions, fm):
         s.check(err["this"] <= tol, f"gram_matvec_fused R={R}: rel err {err['this']} > {tol}")
         got = {label: [] for label, _ in versions}
         for label, fn in versions + versions[::-1]:
-            got[label].append(s.device_ms(lambda: fn(Xs, V, v1), reps=10, warmup=2,
-                                          kernel="gram_matvec")[0])
+            got[label].append(s.device_ms(lambda: fn(Xs, V, v1), reps=10 if R <= 256 else 4,
+                                          warmup=2, kernel="gram_matvec")[0])
         rows.append({"N": s.ITER_N, "D": s.ITER_D, "R": R, "device_ms": got,
                      "rel_err_vs_plain": err,
                      **s.fused_matvec_bounds(s.ITER_N, s.ITER_N, s.ITER_D, R)})
@@ -202,6 +260,90 @@ def times(versions, fm):
         del X, V, Xs, ref
         torch.cuda.empty_cache()
     return rows
+
+
+def wide_checks(fm):
+    """This version's B5 wide kernel (R > 16) through the public wrapper:
+    chip_smoke's wide shapes for every family and accum mode within
+    FUSED_FWD_TOL, a second launch bit for bit, and its error at N=50,000,
+    D=4 for R in WIDE_R (read, not checked: chip_smoke's limits come from
+    these readings)."""
+    import torch
+
+    fwd = [{"family": fname, "accum": accum, "shape": shape[0],
+            "rel_err": s.check_fused_matvec(fm, fam, accum, shape)[0]}
+           for fname, fam in s.FAMILIES.items() for accum in ("exact", "f32x3", "fast")
+           for shape in s.WIDE_SHAPES]
+    errs = {}
+    for R in WIDE_R:
+        X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, s.ITER_D, R, seed=11)
+        Xs = (X / ls).contiguous()
+        v1 = v.reshape(1)
+        out = fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0)
+        ref = fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0)
+        s.check(bool(torch.isfinite(out).all()), f"wide kernel R={R}: non-finite output")
+        errs[R] = float((out - ref).abs().max() / ref.abs().max())
+        del X, V, Xs, out, ref
+        torch.cuda.empty_cache()
+    return {"fwd": fwd, "max_rel_err": max(r["rel_err"] for r in fwd),
+            "fwd_tol": s.FUSED_FWD_TOL, "repeats_bit_for_bit": s.check_wide_repeat(fm),
+            "rel_err_50k_by_R": errs}
+
+
+def chunk_times(fm):
+    """This version's chunk kernels (CHUNK_TIMES) at N=50,000 by device time
+    per launch, with their bounds: none of them is on a main path."""
+    import torch
+
+    rows = []
+    for kind, D, R in CHUNK_TIMES:
+        X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, D, R, seed=11)
+        Xs = (X / ls).contiguous()
+        v1 = v.reshape(1)
+        if kind == "gram_matvec":
+            ms, _, _, _ = s.device_ms(lambda: fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0),
+                                      reps=5, warmup=1, kernel="gram_matvec_kernel<")
+            row = {"kernel": "B5 chunk (gram_matvec_kernel)", "ms": ms,
+                   **s.fused_matvec_bounds(s.ITER_N, s.ITER_N, D, R)}
+        else:
+            _, _, G, _, _ = s.fused_inputs(s.ITER_N, None, D, R, seed=13)
+            ms, reduce_ms, _, _ = s.device_ms(lambda: fm.gram_moments_cuda(Xs, G, V, v1, 0),
+                                              reps=5, warmup=1, kernel="gram_moments_kernel<")
+            bound_ms, bound_by = s.gram_moments_bound(s.ITER_N, D, R)
+            row = {"kernel": "B6 chunk (gram_moments_kernel)", "ms": ms, "reduce_ms": reduce_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append({"N": s.ITER_N, "D": D, "R": R, **row})
+        s.emit({"phase": "chunk_times_row", **rows[-1]})
+        torch.cuda.empty_cache()
+    return rows
+
+
+# run in a fresh process on a checkout (its own chip_smoke and package): the
+# fused N=50,000 model's predict at 256 points, the posterior cached
+PREDICT_CODE = """
+import json, torch
+import chip_smoke as s
+X, Y, Xs = s.iterative_data()
+m = s.iterative_model(X, Y, torch.float32, True)
+m.log_likelihood()
+m.predict(Xs)
+ms = s.host_ms(lambda: m.predict(Xs), reps=2, warmup=0)
+print(json.dumps({"predict_ms": ms}))
+"""
+
+
+def predict_times(roots):
+    """The fused model's predict ms at 256 points on each checkout in
+    `roots` (label -> directory), each in a fresh process, in turns."""
+    order = list(roots) + list(roots)[::-1]
+    got = {label: [] for label in roots}
+    for label in order:
+        r = subprocess.run([sys.executable, "-c", PREDICT_CODE], cwd=roots[label],
+                           capture_output=True, text=True, timeout=900)
+        s.check(r.returncode == 0, f"predict on {label} failed:\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
+        got[label].append(json.loads(r.stdout.strip().splitlines()[-1])["predict_ms"])
+    return {"N": s.ITER_N, "n_pred": s.ITER_PRED, "max_cg": s.ITER_OPTS["max_cg"],
+            "predict_ms": got, "order": order}
 
 
 def moments_times(fns, names, fm):
@@ -246,6 +388,10 @@ def main() -> int:
                     help="also time CHUNK_PHASE_COPIES of the --other LABEL's source")
     ap.add_argument("--no-times", action="store_true",
                     help="build, report and check only")
+    ap.add_argument("--only", choices=["wide"],
+                    help="wide: time B5's wide kernel and its WIDE_PHASE_COPIES only")
+    ap.add_argument("--predict-other", action="append", default=[], metavar="LABEL=DIR",
+                    help="another checkout to time the fused model's predict on")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("matvec_probe: torch sees no CUDA device", file=sys.stderr)
@@ -264,7 +410,10 @@ def main() -> int:
     if args.phases:
         others += phase_copies(os.path.join(_build.CSRC_DIR, NAME + ".cu"),
                                os.path.join(_build.BUILD_DIR, "matvec_phases"),
-                               {**PHASE_COPIES, **MOMENTS_PHASE_COPIES})
+                               {**PHASE_COPIES, **MOMENTS_PHASE_COPIES, **WIDE_PHASE_COPIES})
+    elif args.only == "wide":
+        others += phase_copies(os.path.join(_build.CSRC_DIR, NAME + ".cu"),
+                               os.path.join(_build.BUILD_DIR, "matvec_phases"), WIDE_PHASE_COPIES)
     with ThreadPoolExecutor(max_workers=1 + len(others)) as ex:
         this = ex.submit(_build.build, NAME)
         futures = {label: ex.submit(build_other, _build, label, src, NAME)
@@ -278,20 +427,36 @@ def main() -> int:
             kernels = {k: (v if any(m in k for m in MAIN_PATH_SASS)
                            else {"instructions": v["instructions"]})
                        for k, v in kernels.items()
-                       if re.search(r"\dgram_(matvec_(tile_|wide_)?|moments_(tile_)?)kernelI", k)}
-        s.emit({"phase": "sass", "version": label, "kernels": kernels})
+                       if re.search(r"\dgram_(matvec_(tile_|wide_|tc_)?|moments_(tile_)?)kernelI", k)}
+        s.emit({"phase": "sass", "version": label, "kernels": kernels,
+                "wide_tensor_core_ops": tensor_core_ops(label)})
 
     fns = {label: launchers(path, label) for label, (path, _) in builds.items()}
-    b5_only = set(PHASE_COPIES) | set(CHUNK_PHASE_COPIES)
+    b5_only = set(PHASE_COPIES) | set(CHUNK_PHASE_COPIES) | set(WIDE_PHASE_COPIES)
     b6 = {label: f[1] for label, f in fns.items() if label not in b5_only}
     s.emit({"phase": "gram_moments_check", **check_moments(b6, fm, set(MOMENTS_PHASE_COPIES))})
+    s.emit({"phase": "wide_checks", **wide_checks(fm)})
     if not args.no_times:
-        versions = [(label, f[0]) for label, f in fns.items() if label not in MOMENTS_PHASE_COPIES]
-        s.emit({"phase": "times", "nvidia_smi": smi, "rows": times(versions, fm)})
+        versions = [(label, f[0]) for label, f in fns.items()
+                    if label not in MOMENTS_PHASE_COPIES and label not in WIDE_PHASE_COPIES]
+        if args.only != "wide":
+            s.emit({"phase": "times", "nvidia_smi": smi, "rows": times(versions, fm, TIME_R)})
+        wide = [(label, fn) for label, fn in versions if label not in b5_only]
+        s.emit({"phase": "wide_times", "nvidia_smi": smi, "rows": times(wide, fm, WIDE_R)})
+        cuts = [(label, f[0]) for label, f in fns.items() if label in WIDE_PHASE_COPIES]
+        if cuts:
+            s.emit({"phase": "wide_phase_times", "nvidia_smi": smi,
+                    "rows": times([("this", fns["this"][0])] + cuts, fm, (256,))})
+    if not args.no_times and args.only != "wide":
+        s.emit({"phase": "chunk_times", "nvidia_smi": smi, "rows": chunk_times(fm)})
         names = {label: B6_TILE if "gram_moments_tile_kernel" in builds[label][1] else B6_CHUNK
                  for label in b6}
         s.emit({"phase": "moments_times", "nvidia_smi": smi,
                 "rows": moments_times(b6, names, fm)})
+    if args.predict_other:
+        roots = {**dict(o.split("=", 1) for o in args.predict_other),
+                 "this": os.path.dirname(os.path.abspath(__file__))}
+        s.emit({"phase": "predict_times", "nvidia_smi": smi, **predict_times(roots)})
     print(smi, flush=True)
     return 0
 

@@ -84,26 +84,32 @@ def test_slq_logdet_matches_reference_and_truth():
 
 # --- twin models ------------------------------------------------------------
 
-# name -> (kernel, IterativeGaussianInference options, tolerance). float64
-# paths agree to 1e-7; "fused" runs float32 kernels on both sides (Pallas in
-# interpret mode, the port's plain twin) inside float64 models, whose CG
-# differs in float32 rounding of each product (readings: NLML 6e-10,
-# gradient 4.5e-7, predictions 3e-7); "bf16" stores a bfloat16 Gram on both
-# sides, where one entry rounding the other way would move the NLML ~1e-7.
+# name -> (kernel, IterativeGaussianInference options, tolerance[, predict
+# points]). float64 paths agree to 1e-7; "fused" runs float32 kernels on
+# both sides (Pallas in interpret mode, the port's plain twin) inside
+# float64 models, whose CG differs in float32 rounding of each product
+# (readings: NLML 6e-10, gradient 4.5e-7, predictions 3e-7);
+# "fused_predict40" predicts at 40 points, so the predict's CG has R = 40
+# right-hand sides (B5's wide kernel on the card); "bf16" stores a bfloat16
+# Gram on both sides, where one entry rounding the other way would move the
+# NLML ~1e-7.
 CASES = {
     "materialized_fast_grad": ("RBF", dict(materialize=True), 1e-7),
     "blockwise_matern32": ("Matern32", dict(materialize=False), 1e-7),
     "precond_rank16": ("RBF", dict(materialize=True, precond_rank=16), 1e-7),
     "fused": ("RBF", dict(materialize=False, fused=True, fused_accum="exact"), 1e-5),
+    "fused_predict40": ("RBF", dict(materialize=False, fused=True, fused_accum="f32x3"), 1e-5,
+                        40),
     "bf16_gram": ("RBF", dict(materialize=True, gram_dtype="bfloat16"), 1e-6),
 }
 
 
-def _data(seed=0):
+def _data(seed=0, n_pred=7):
     rng = np.random.default_rng(seed)
     X = rng.uniform(0, 10, (N, D))
     Y = np.sin(X[:, :1]) + 0.1 * rng.standard_normal((N, 1))
-    return X, Y, rng.uniform(0, 10, (7, D))
+    Xs = rng.uniform(0, 10, (7, D))
+    return X, Y, Xs if n_pred == 7 else np.vstack([Xs, rng.uniform(0, 10, (n_pred - 7, D))])
 
 
 def _hand_jax_probes(inf, rank):
@@ -121,9 +127,9 @@ def _hand_jax_probes(inf, rank):
 @pytest.fixture(scope="module", params=list(CASES))
 def twin_run(request):
     torch.set_num_threads(1)
-    kname, opts, tol = CASES[request.param]
+    kname, opts, tol, *n_pred = CASES[request.param]
     opts = dict(max_cg=MAX_CG, n_probes=P, block=128, seed=0, **opts)
-    X, Y, Xs = _data()
+    X, Y, Xs = _data(n_pred=n_pred[0] if n_pred else 7)
     jm = JGPRegression(X, Y, getattr(gk, kname)(D, ARD=True), noise_var=0.1,
                        inference_method=jit_mod.IterativeGaussianInference(**opts))
     tinf = tit.IterativeGaussianInference(**opts)

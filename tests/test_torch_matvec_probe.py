@@ -12,12 +12,12 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 
 
 @pytest.mark.parametrize("copies", ["PHASE_COPIES", "CHUNK_PHASE_COPIES",
-                                    "MOMENTS_PHASE_COPIES"])
+                                    "MOMENTS_PHASE_COPIES", "WIDE_PHASE_COPIES"])
 def test_phase_copies_apply_to_the_kernel_source(tmp_path, copies):
     """Each copy finds its text in csrc/gram_matvec_fused.cu exactly once
     (B5's register-tile kernel's, the chunk kernel's that the D > 8 path
-    keeps, and B6's register-tile kernel's), so an edit of the kernel that
-    moves that text fails here, not on the card."""
+    keeps, B6's register-tile kernel's and B5's wide kernel's), so an edit
+    of the kernel that moves that text fails here, not on the card."""
     table = getattr(matvec_probe, copies)
     original = open(SRC).read()
     for subs in table.values():
@@ -55,3 +55,50 @@ def test_main_path_b6_instance_is_the_one_launched():
     assert chip_smoke.MAIN_B6_INSTANCE in matvec_probe.MAIN_PATH_SASS
     assert matvec_probe.B6_TILE.rstrip("<") in chip_smoke.MAIN_B6_INSTANCE
     assert matvec_probe.B6_CHUNK not in "gram_moments_tile_kernel<0, 9, 4>"
+
+
+def _matvec_family(src):
+    body = src[src.index("int matvec_family("):]
+    return body[:body.index("\n}\n")]
+
+
+@pytest.mark.parametrize("d, instance", [(4, "launch_wide<FAM, 4>"), (8, "launch_wide<FAM, 8>"),
+                                         (12, "launch_wide<FAM, 0>")])
+def test_wide_r_routes_to_the_tensor_core_kernel(d, instance):
+    """matvec_family sends R > 16 to the tensor-core kernel for D <= 8 (its
+    rows' coordinates in registers: DMAX 4 or 8) and for D > 8 (DMAX 0), and
+    only after every R <= 16 branch has returned; the FFMA wide kernel is
+    gone, and the instance that chip_smoke.py and matvec_probe.py report
+    (RBF, DMAX 4) is the kernel's template."""
+    src = open(SRC).read()
+    fam = _matvec_family(src)
+    lines = [ln.strip() for ln in fam.splitlines() if "return" in ln]
+    wide = [i for i, ln in enumerate(lines) if "launch_wide<" in ln]
+    narrow = [i for i, ln in enumerate(lines) if "r <= " in ln]
+    assert narrow and wide and max(narrow) < min(wide)
+    cond = {4: "if (d <= 4)", 8: "if (d <= 8)", 12: "return launch_wide<FAM, 0>"}[d]
+    line = next(ln for ln in lines if instance in ln)
+    assert line.startswith(cond)
+    assert "gram_matvec_wide_kernel" not in src
+    assert "launch_wide<FAM, DMAX>" not in fam
+    assert "gram_matvec_tc_kernel<FAM, DMAX><<<" in src
+    assert chip_smoke.WIDE_B5_INSTANCE == "gram_matvec_tc_kernelILi0ELi4E"
+    assert chip_smoke.WIDE_B5_INSTANCE in matvec_probe.MAIN_PATH_SASS
+    assert "template <int FAM, int DMAX>\n__global__ void __launch_bounds__(kWideThreads, 1)\n" \
+           "gram_matvec_tc_kernel(" in src
+
+
+def test_wide_producers_wait_for_tile_0s_raw_rows():
+    """The tensor-core kernel's producers copy tile j + 2's V rows into the
+    raw buffer tile j - 1 was read from (three buffers), so from tile 1 on
+    they wait on EMPTY before that copy; at tile 1 the consumers' arrival
+    comes after their transpose of tile 0, before their walk."""
+    src = open(SRC).read()
+    produce = src[src.index("void wide_produce("):src.index("gram_matvec_tc_kernel(")]
+    assert "constexpr int kRawBufs = 3;" in src
+    assert "if (tile >= 1) bar_sync(kBarEmpty + buf, kWideThreads);" in produce
+    assert produce.index("bar_sync(kBarEmpty + buf") < produce.index("fetch(tile + 2);")
+    consume = src[src.index("gram_matvec_tc_kernel("):src.index("int launch_wide(")]
+    pre = consume[consume.index("if (tiles > 0) {"):consume.index("for (int64_t tile = 0;")]
+    assert pre.index("transpose(0);") < pre.index(
+        "if (tiles > 1) bar_arrive(kBarEmpty + 1, kWideThreads);")
