@@ -20,10 +20,15 @@ Phases, each printing one JSON line:
                 its bound, objective+gradient and predict times;
   6. profile -- device time by kernel over one objective+gradient;
   7. kernels_fused -- the fused Gram-matvec (B5) against its plain twin for
-                the four families, the three accum modes and thirteen
-                shapes (four of them the wide kernel's, R > 16; and once
-                on unaligned views), the wide kernel's second launch bit
-                for bit against its first,
+                the four families, the three accum modes and 38 shapes
+                (four of them the wide kernel's, R > 16; 25 at D > 8, R <=
+                16: the cross-term kernel at D = 9, 12, 20, 33 by R = 1, 9,
+                16, square and rectangular, and D = 72 past its cap; and on
+                unaligned views), the wide kernel's and the cross-term
+                kernel's second launches bit for bit against their first,
+                K_ii exactly v on square calls of the cross-term kernel,
+                the sharded slab's rows at D = 12 bit for bit against the
+                square product's,
                 and its gradient moments (B6, through the autograd
                 Function) against autograd of the plain twin for the four
                 families at D = 1, 4, 8, 12 by R = 1, 9, 16 and two ragged
@@ -48,7 +53,15 @@ Phases, each printing one JSON line:
                 times of both models, the materialized matvec's matmul;
  10. iterative_profile -- device time by kernel over one NLML+gradient of
                 each model;
- 11. kernels_chol -- the batched block Cholesky B2/B3 against its plain twin
+ 11. iterative_d12 -- the same configuration at D=12 (X ~ U[0,10)^12, an
+                ARD RBF from lengthscale 3.0), fused: the user's steps with
+                the launch counters (49 B5 launches and one B6 an
+                objective_and_grad, B5's under the cross-term kernel's
+                profiler name), float32 against a float64 materialized twin
+                at the same probes (NLML and 14 gradient entries), the
+                NLML+gradient and predict times, the cross-term kernel and
+                the tensor-core kernel (R = 256) at N=50,000, D=12;
+ 12. kernels_chol -- the batched block Cholesky B2/B3 against its plain twin
                 at every batch the main path gives it (C = 2, 4, 8, 16)
                 and at 1, 32 and 64, float32 and float64; B4 (chol + inverse)
                 likewise; NaN isolation of a non-SPD element in both; the
@@ -57,7 +70,7 @@ Phases, each printing one JSON line:
                 against a float64 factorization, launches counted; B2/B3's
                 bad pivots inside, between and after its 16-column panels
                 against the twin's first NaN column;
- 12. hmc      -- the batched main path at bench.py's HMC stage (N=1000, D=2,
+ 13. hmc      -- the batched main path at bench.py's HMC stage (N=1000, D=2,
                 RBF, noise 0.1, float32, stepsize 0.02, 10 leapfrog steps,
                 40 samples) for 1, 2, 4, 8 and 16 chains: one warm
                 sample(), then a timed one with the launch counters read
@@ -65,18 +78,18 @@ Phases, each printing one JSON line:
                 C = 1), samples/s and acceptance; the batched logp and
                 gradient at the 16 chains' final states against the
                 unbatched path and a float64 twin; one HMC_shortcut run;
- 13. restarts -- optimize_restarts(parallel=True) with 16 restarts on the
+ 14. restarts -- optimize_restarts(parallel=True) with 16 restarts on the
                 same model, against L-BFGS-B;
- 14. chol_times -- B2/B3 and B4 at (C, 128, 128), C = 2, 4, 8, 16, float32
+ 15. chol_times -- B2/B3 and B4 at (C, 128, 128), C = 2, 4, 8, 16, float32
                 and float64, by the profiler's device time and by CUDA
                 events, each beside its plain twin, its bound and the
                 library (batched torch.linalg.cholesky; for B4 with
                 solve_triangular); the three blocked routines and the
                 library at (C, 1000, 1000) float32, C = 2, 4, 8, 16: device
                 time, wall time and B2/B4 launches per call;
- 15. hmc_profile -- device time by kernel over one batched logp+gradient at
+ 16. hmc_profile -- device time by kernel over one batched logp+gradient at
                 8 chains;
- 16. svgp     -- the SVGP flagship at bench.py:355-394's configuration,
+ 17. svgp     -- the SVGP flagship at bench.py:355-394's configuration,
                 uncut (N=100,000, M=512, D=8, B=4096, RBF-ARD, noise 0.1,
                 float32, fit(step_size=1e-2, natgrad_step_size=0.1)): B1
                 against its twin and timed at (512, 512, 8) and (512, 4096,
@@ -91,9 +104,9 @@ Phases, each printing one JSON line:
                 use_natgrad=False, 20 steps each; predict on 2048 points;
                 the collapsed-bound oracles in float64 against
                 SparseGPRegression;
- 17. svgp_profile -- device operations a step, the idle share and the top
+ 18. svgp_profile -- device operations a step, the idle share and the top
                 device operations over one fit(iters=20);
- 18. sparse_gp -- BASELINE config 2: the SVGP phase's data at N=50,000,
+ 19. sparse_gp -- BASELINE config 2: the SVGP phase's data at N=50,000,
                 M=512, D=8, float32. B1 against its twin and timed at
                 (50000, 512, 8) and (512, 2048, 8); one NLML+gradient of
                 SparseGPRegression with VarDTC, FITC, DTC, PEP(0.5) and
@@ -104,16 +117,16 @@ Phases, each printing one JSON line:
                 float64 twin; in float64, PEP(1) = FITC, minibatch = VarDTC
                 (bound and woodbury vector), and a heteroscedastic
                 likelihood at equal variances = the Gaussian;
- 19. sparse_optimize -- optimize(max_iters=100) of VarDTC and FITC, each
+ 20. sparse_optimize -- optimize(max_iters=100) of VarDTC and FITC, each
                 in float32 and in float64 from the same start: seconds,
                 evaluations, ms and host syncs an evaluation, scipy's
                 message, B1 launches, NLML at the start and the end (and
                 float64's at both), predict at 2048 points before and
                 after, posterior cached and building it;
- 20. sparse_md -- SparseGPRegressionMD on the same rows over 4 outputs:
+ 21. sparse_md -- SparseGPRegressionMD on the same rows over 4 outputs:
                 one NLML+gradient as in sparse_gp, and in float64 its bound
                 against the sum of the outputs' own VarDTC bounds;
- 21. classification -- BASELINE config 3 at bench.py:656-752's shapes: the
+ 22. classification -- BASELINE config 3 at bench.py:656-752's shapes: the
                 banana set (N=2048, D=2, float32, RBF), GPClassification
                 (EP) and GPClassificationLaplace. B1 against its twin and
                 timed at (2048, 2048, 2) and (512, 4096, 2); for each
@@ -124,12 +137,12 @@ Phases, each printing one JSON line:
                 =20) from the default start (seconds, evaluations, NLML
                 before and after in float32 and float64, held-out accuracy
                 on a second draw, predict ms); mean |p_EP - p_Laplace|;
- 22. epdtc    -- EPDTC at N=4096, M=512 (Z by a permutation, bench.py:
+ 23. epdtc    -- EPDTC at N=4096, M=512 (Z by a permutation, bench.py:
                 757-762): one NLML+gradient as above (2 B1 launches), then
                 SparseGPClassification on the same data and Z,
                 fit(iters=100) with the counters read around it (2 B1
                 launches a step), steps/s;
- 23. coreg    -- BASELINE config 4's multi-output half at bench.py:645-654's
+ 24. coreg    -- BASELINE config 4's multi-output half at bench.py:645-654's
                 shapes (4 outputs x 1000 points, D=1, float32): B1 against
                 its twin and timed at (4000, 4000, 1), (1000, 4000, 1) and
                 (1024, 1024, 1); GPCoregionalizedRegression (ICM(RBF(1)),
@@ -144,7 +157,7 @@ Phases, each printing one JSON line:
                 the sparse bound with Z = X below the exact one by no more
                 than Kmm's jitter allows, and ICM with W = 0 as 4
                 independent GPRegressions;
- 24. multioutput -- MultioutputGP at bench.py:821-830's 512 f + 512 f'
+ 25. multioutput -- MultioutputGP at bench.py:821-830's 512 f + 512 f'
                 ([RBF(1), DiffKern(RBF, 0)], one base, Gaussian(1e-2)
                 twice): one NLML+gradient as above (1 B1 launch, the f-f
                 block), optimize(max_iters=20) in float32 and float64,
@@ -152,7 +165,7 @@ Phases, each printing one JSON line:
                 blocks in float64 against RBF's closed forms; then
                 [Gaussian(0.1), Bernoulli()] under EP, one NLML+gradient (2
                 B1 launches) with its sweeps;
- 25. gplvm    -- BASELINE config 5's first half at bench.py:627-642's shape
+ 26. gplvm    -- BASELINE config 5's first half at bench.py:627-642's shape
                 (Y = N(0,1)^{1000x3} N(0,1)^{3x12} + 0.1 eps, float32): B1
                 against its twin and timed at (30, 30, 10), (1000, 1000,
                 10), (30, 1000, 10), (64, 64, 2) and (64, 1000, 2);
@@ -170,7 +183,7 @@ Phases, each printing one JSON line:
                 S -> 0 against SparseGPRegression's VarDTC bound at X = the
                 mean, SSGPLVM at gamma -> 1 against BayesianGPLVM, and the
                 streamed psi2 against the summed psi2n;
- 26. sparse_hmc -- the batched sparse bound: bench.py:847-853's HMC data as
+ 27. sparse_hmc -- the batched sparse bound: bench.py:847-853's HMC data as
                 SparseGPRegression(num_inducing=64), HMC (stepsize 0.02,
                 10 leapfrog steps, 40 samples) in float64 at 1, 2, 4, 8
                 and 16 chains (samples x chains per second, acceptance
@@ -183,7 +196,7 @@ Phases, each printing one JSON line:
                 (float64), with cond(Kmm) at each;
                 optimize_restarts(parallel=True) with 16 restarts in
                 float32 and in float64 (checked) beside L-BFGS-B.
- 27. lvmogp   -- GPMultioutRegression at bench.py:832-839's shape (400 rows x
+ 28. lvmogp   -- GPMultioutRegression at bench.py:832-839's shape (400 rows x
                 8 outputs, Xr_dim=2, (Mc, Mr) = (32, 4), init="rand",
                 float32): B1 against its twin and timed at the LVMOGP's
                 shapes; one ELBO+gradient with the counters read around it
@@ -196,13 +209,13 @@ Phases, each printing one JSON line:
                 the missing-data bound with every entry observed against
                 the full bound; the scale point 20,000 x 50 at (100, 10):
                 ELBO+gradient ms;
- 28. tp       -- TPRegression at bench.py:815-819's shape (N=2048, D=2,
+ 29. tp       -- TPRegression at bench.py:815-819's shape (N=2048, D=2,
                 deg_free=4, the default RBF, no noise term): one
                 NLML+gradient as above (1 B1 launch), predict ms, the
                 jitter jitchol needed in float32 and float64 (recorded:
                 the two factor differently jittered matrices), and RBF +
                 White(0.01) float32 against float64 (held);
- 29. optimizers -- adam, adagrad, rmsprop, adadelta, rprop and
+ 30. optimizers -- adam, adagrad, rmsprop, adadelta, rprop and
                 lbfgs_device for 100 iterations on bench.py's HMC data
                 (N=1000, D=2, noise 0.1) in float32 and float64: seconds,
                 evaluations, host syncs an iteration beside those of the
@@ -211,7 +224,7 @@ Phases, each printing one JSON line:
                 the counters read around them (8 B2/B3 and 16 B1 launches
                 an evaluation); lbfgs_device against lbfgsb on the N=8192
                 dense slice, max_iters=30;
- 30. gp_surface -- the N=8192 dense slice with normalizer=True and a Linear
+ 31. gp_surface -- the N=8192 dense slice with normalizer=True and a Linear
                 mean function: NLML+gradient against the plain model in
                 turns, predictive_gradients at 2048 points,
                 posterior_samples_f(size=10, full_cov=True) at 512,
@@ -220,7 +233,7 @@ Phases, each printing one JSON line:
                 fit(iters=200) steps/s in turns; infer_newX(variational=
                 False) for 16 new rows on GPLVM at bench.py's N=1000,
                 D=12, Q=10.
- 31. state_space -- StateSpace at bench.py:764-777's Kalman stage, uncut
+ 32. state_space -- StateSpace at bench.py:764-777's Kalman stage, uncut
                 (N=20,000 sorted U(0, 100) times, y = sin(x/3) + 0.2 eps,
                 float32, the default Matern32(1), noise 0.1): one
                 NLML+gradient of the sequential engine (timed with repeats
@@ -240,7 +253,7 @@ Phases, each printing one JSON line:
                 the sequential filter; two rows through the batched
                 objective of the parallel StateSpace (N=2,000) and of
                 TPRegression (N=2048) against unbatched evaluation.
- 32. longtail -- bench.py:784-813's long-tail stage, uncut, float32 with a
+ 33. longtail -- bench.py:784-813's long-tail stage, uncut, float32 with a
                 float64 twin: GPKroneckerGaussianRegression on the 32 x 24
                 grid (2 B1 launches an NLML+gradient) and GPRegressionGrid
                 on 16 x 12 x 10 (3), each with one NLML+gradient as above,
@@ -258,7 +271,7 @@ Phases, each printing one JSON line:
                 GPRegression at N=1000: one NLML+gradient against float64
                 (4 B1 launches for Symmetric, SplitKern and DEtime over an
                 RBF, 1 for GridRBF).
- 33. lfm_symbolic -- the latent-force models and the symbolic kernel and
+ 34. lfm_symbolic -- the latent-force models and the symbolic kernel and
                 likelihood at shapes chosen here (bench.py has none): T
                 times an output on linspace(0.1, 10), R forces
                 sin((q+1) t/2 + phi_q), two of them driving each output;
@@ -282,7 +295,7 @@ Phases, each printing one JSON line:
                 symbolic Student-t (nu = 4) under Laplace against
                 StudentT(deg_free=4) in float64, float32 against float64,
                 optimize(max_iters=20) (1 B1 launch an NLML+gradient).
- 34. surface  -- the host-side surface on the card: every function of
+ 35. surface  -- the host-side surface on the card: every function of
                 gpy_tpu_torch.examples at its own defaults with
                 optimize=True, in the package's default dtype (float64),
                 the cuts of EXAMPLE_CUTS and EXAMPLE_MAX_ITERS listed in
@@ -310,7 +323,7 @@ Phases, each printing one JSON line:
                 NLML+gradients of the dense slice (the Chrome trace must
                 name B1's kernel), StepTimer's median against the step's
                 CUDA-event time, and profile_objective's summary.
- 35. parallel -- sharding (gpy_tpu_torch.parallel). (a) On a 1-rank NCCL
+ 36. parallel -- sharding (gpy_tpu_torch.parallel). (a) On a 1-rank NCCL
                 make_mesh() over cuda:0, float32: sharded_svgp_train_step at
                 the svgp phase's shape (N=100,000, M=512, D=8, batches of
                 B=4096 rows), plain and whitened, 20 steps against the
@@ -815,7 +828,20 @@ def check_fused_unaligned(fm):
     ref = fm.gram_moments_plain(X2s.double(), G.double(), V.double(), v.double(), 0)
     mrel = float((mom - ref).abs().max() / ref.abs().max())
     check(mrel <= FUSED_BWD_TOL, f"gram_moments unaligned views: rel err {mrel}")
-    return {"gram_matvec_fused": rel, "gram_moments": mrel}
+    # the cross-term kernel (D = 12, R = 9): rows, columns and V all views
+    # at 52-, 4- and 4-byte offsets into flat buffers, Xs's row i X2s's row
+    # i + 1 (diag_offset 1)
+    Xb = torch.tensor(g.random(N * 12 + 13) - 0.5, dtype=torch.float32, device="cuda")
+    Vb = torch.tensor(g.standard_normal(N * R + 1), dtype=torch.float32, device="cuda")
+    Xs, X2s = Xb[13:].reshape(N, 12), Xb[1:1 + N * 12].reshape(N, 12)
+    V = Vb[1:].reshape(N, R)
+    check(Xs.data_ptr() % 16 != 0 and X2s.data_ptr() % 16 != 0 and V.data_ptr() % 16 != 0,
+          "unaligned: the D=12 views are aligned")
+    out = fm.stationary_gram_matvec_cuda(Xs, X2s, V, v, 0, diag_offset=1)
+    ref = fm.stationary_gram_matvec_plain(Xs, X2s, V, v, 0, diag_offset=1)
+    crel = float((out - ref).abs().max() / ref.abs().max())
+    check(crel <= FUSED_FWD_TOL, f"gram_matvec_fused cross kernel unaligned views: rel err {crel}")
+    return {"gram_matvec_fused": rel, "gram_moments": mrel, "gram_matvec_fused_d12": crel}
 
 
 # the wide kernel's edges (R > 16, the tensor cores): R = 17 (4-byte copies
@@ -838,6 +864,69 @@ def check_wide_repeat(fm):
     return True
 
 
+# the cross-term kernel's shapes (8 < D <= 64, R <= 16): D past one and
+# several 8-dimension steps (9, 12, 20, 33) by its R chunks 1, 9 and 16,
+# square (N = 2049: a ragged last block and tile) and rectangular, ragged
+# both ways; D = 72 at R = 9 goes past the kernel's cap to the tensor-core one
+CROSS_SHAPES = [(f"cross_d{D}_r{R}_{kind}", N, M, D, R) for D in (9, 12, 20, 33)
+                for R in (1, 9, 16) for kind, N, M in (("square", 2049, None),
+                                                      ("rect", 2047, 3001))] + [
+    ("past_cross_d72_r9", 2047, 3001, 72, 9)]
+CROSS_B5_INSTANCE = "gram_matvec_cross_kernelILi0ELi9ELi2EE"
+CROSS_B5_KERNEL = "gram_matvec_cross_kernel<"
+# the sharded slab's rows at D = 12: N over PAR_SLABS ranks, the first rows
+# at 0, 2000, 4000, 6000 (not block-aligned)
+CROSS_SLAB_N, PAR_SLABS = 8000, 4
+
+
+def check_cross(fm):
+    """The cross-term kernel beyond its twin: a second launch bit for bit;
+    K_ii exactly v (V = columns o .. o + 15 of the identity gives out[o + c,
+    c] = K_(o+c)(o+c), for every family at D = 12, R = 16); the sharded
+    slab (parallel/iterative.py's _slab, diag_offset = its first row) equal
+    to the square product's rows bit for bit, and without the offset the
+    difference it would make."""
+    import numpy as np
+    import torch
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.parallel.iterative import _slab
+
+    X, _, V, ls, v = fused_inputs(4096, None, 12, 9, seed=43)
+    a = fm.stationary_gram_matvec_fused(X, V, v, ls)
+    b = fm.stationary_gram_matvec_fused(X, V, v, ls)
+    check(bool(torch.equal(a, b)), "gram_matvec_fused cross kernel: two launches differ")
+    diag = {}
+    N = 3001
+    for fname, fam in FAMILIES.items():
+        X, _, _, ls, v = fused_inputs(N, None, 12, 16, seed=44 + fam)
+        for o in (0, 1000, N - 16):
+            E = torch.zeros((N, 16), dtype=torch.float32, device="cuda")
+            E[o + torch.arange(16), torch.arange(16)] = 1.0
+            out = fm.stationary_gram_matvec_fused(X, E, v, ls, family=fam)
+            kii = out[o + torch.arange(16, device="cuda"), torch.arange(16, device="cuda")]
+            check(bool((kii == v).all()),
+                  f"gram_matvec_fused cross kernel {fname}: K_ii at rows {o}.. is not v: "
+                  f"{(kii - v).abs().max().item()}")
+        diag[fname] = True
+    g = np.random.default_rng(45)
+    Xn = torch.tensor(g.random((CROSS_SLAB_N, 12)) * 10.0, dtype=torch.float32, device="cuda")
+    Vn = torch.tensor(g.standard_normal((CROSS_SLAB_N, 9)), dtype=torch.float32, device="cuda")
+    kern = RBF(12, ARD=True, lengthscale=3.0, device="cuda", dtype=torch.float32)
+    full = fm.kern_gram_matvec_fused(kern, Xn, Vn)
+    step = CROSS_SLAB_N // PAR_SLABS
+    slabs, off = [], []
+    for i0 in range(0, CROSS_SLAB_N, step):
+        sl = _slab(kern, Xn, Vn, i0, i0 + step, 2048, True, "f32x3")
+        slabs.append(bool(torch.equal(sl, full[i0:i0 + step])))
+        bare = fm.kern_gram_matvec_fused(kern, Xn[i0:i0 + step], Vn, X2=Xn)
+        off.append(float((bare - full[i0:i0 + step]).abs().max() / full.abs().max()))
+    check(all(slabs), f"gram_matvec_fused cross kernel: sharded slabs differ from the square "
+                      f"product's rows: {slabs}")
+    return {"repeats_bit_for_bit": True, "k_ii_exactly_v": diag,
+            "slab_rows_bit_equal": slabs, "slab_first_rows": list(range(0, CROSS_SLAB_N, step)),
+            "slab_without_diag_offset_rel_diff": off}
+
+
 # B6's shapes (N, D, R): the register-tile kernel at D = 1, 4, 8 (DMAX 4
 # and 8) by its R chunks 1, 9, 16, the chunk kernel at D = 12, and ragged N
 MOMENT_SHAPES = [(4096, D, R) for D in (1, 4, 8, 12) for R in (1, 9, 16)] + [
@@ -851,22 +940,24 @@ def run_fused_checks(fm):
               # the register-tile kernel's edges: D=1 with a ragged last
               # tile, DMAX=8 at the widest R, ragged rows, columns and R
               ("d1", 2049, None, 1, 9), ("d8_r16", 2048, None, 8, 16),
-              ("ragged_rect", 2047, 3001, 4, 9)] + WIDE_SHAPES
-    fwd, worst = [], 0.0
+              ("ragged_rect", 2047, 3001, 4, 9)] + WIDE_SHAPES + CROSS_SHAPES
+    fwd, worst, cross_worst = [], 0.0, 0.0
     for fname, fam in FAMILIES.items():
         for accum in ("exact", "f32x3", "fast"):
             for shape in shapes:
                 rel, err = check_fused_matvec(fm, fam, accum, shape)
                 worst = max(worst, err)
+                if shape in CROSS_SHAPES[:-1] or shape[0] == "wide_d12":
+                    cross_worst = max(cross_worst, err)
                 fwd.append({"family": fname, "accum": accum, "shape": shape[0], "rel_err": rel})
     bwd = [{"family": fname, "N": N, "D": D, "R": R,
             "rel_err": check_fused_moments(fm, fam, D, N=N, R=R)}
            for fname, fam in FAMILIES.items() for N, D, R in MOMENT_SHAPES]
     return {"phase": "kernels_fused", "gram_matvec_fused": fwd, "fwd_tol": FUSED_FWD_TOL,
-            "wide_repeats_bit_for_bit": check_wide_repeat(fm),
+            "wide_repeats_bit_for_bit": check_wide_repeat(fm), "cross": check_cross(fm),
             "unaligned_views_rel_err": check_fused_unaligned(fm),
             "gram_moments": bwd, "bwd_tol": FUSED_BWD_TOL,
-            "max_fwd_rel_err": max(r["rel_err"] for r in fwd),
+            "max_fwd_rel_err": max(r["rel_err"] for r in fwd), "cross_max_abs_err": cross_worst,
             "max_bwd_rel_err": max(max(r["rel_err"].values()) for r in bwd)}, worst
 
 
@@ -932,11 +1023,11 @@ def reset_counters():
     bc.launches = bc.inv_launches = 0
 
 
-def drive_iterative(m, Xs):
+def drive_iterative(m, Xs, check_rmse=True):
     """The user's steps on one model, the launch counters read around each.
 
     The predictive RMSE is checked at the starting parameters (the first
-    predict). After optimize(max_iters=2) it is recorded, not checked: two
+    predict), unless check_rmse is False (then recorded only). After optimize(max_iters=2) it is recorded, not checked: two
     L-BFGS-B steps take the noise variance from 0.1 to ~1e-4 and the
     lengthscale to ~4, where 48 CG steps are far from converged and the SLQ
     estimate of the NLML (~-1.3e5) is a bias the optimizer follows; the
@@ -980,7 +1071,7 @@ def drive_iterative(m, Xs):
     check((var > 0).all() and (q_lo < mu).all() and (mu < q_hi).all(),
           "iterative: predictive intervals out of order")
     rmse0 = float(np.sqrt(np.mean((mu0 - truth) ** 2)))
-    check(rmse0 < float(np.std(truth)),
+    check(not check_rmse or rmse0 < float(np.std(truth)),
           f"iterative: predictive RMSE {rmse0} at the start is no better than the mean")
     return {"x0": x0, "f0": f0, "g0": g0, "nlml_after_2": res.f_opt, "status": res.status,
             "optimize_checked_on_estimate_only": True,
@@ -1133,6 +1224,27 @@ def fused_matvec_bounds(N, M, D, R):
             "bound_tc_ms": tc[tc_by] * 1e3, "bound_tc_by": tc_by, "bytes_ms": t_bytes * 1e3}
 
 
+def cross_matvec_bounds(N, M, D, R):
+    """Least time for B5's cross-term kernel (float32, 8 < D <= 64, R <=
+    16), the longest of: the bytes (fused_matvec_bounds'); the cross term's
+    3 passes of 2 D_pad TF32 operations an entry (D_pad: D up to a multiple
+    of 8) at the TF32 peak; the SIMT operations that remain, 2R for the
+    contraction and 4 for r2 and K (the accumulator's start, the clamp, the
+    exp, the multiply by v), at the float32 peak. `bound_direct_ms`: the
+    direct form's (3D+3) + 2R an entry at the float32 peak
+    (fused_matvec_bounds' `bound_ms`)."""
+    base = fused_matvec_bounds(N, M, D, R)
+    t = {"bytes": base["bytes_ms"] / 1e3,
+         "operations": N * M * (2 * R + 4) / PEAK_FLOPS["float32"],
+         "tensor_cores": N * M * 3 * 2 * (-(-D // 8) * 8) / PEAK_TF32_TC}
+    by = max(t, key=t.get)
+    return {"bound_ms": t[by] * 1e3, "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_cross_by": by, "bound_simt_ms": t["operations"] * 1e3,
+            "bound_tensor_cores_ms": t["tensor_cores"] * 1e3,
+            "bound_direct_ms": base["bound_ms"], "bound_direct_by": base["bound_by"],
+            "bytes_ms": base["bytes_ms"]}
+
+
 # the main path's B5 and B6 instances: RBF, R chunk 9, DMAX 4; B5's wide
 # instance (R > 16: a predict's CG at D = 4), RBF, DMAX 4; B6's kernel by
 # the profiler's name
@@ -1140,6 +1252,10 @@ MAIN_B5_INSTANCE = "gram_matvec_tile_kernelILi0ELi9ELi4E"
 WIDE_B5_INSTANCE = "gram_matvec_tc_kernelILi0ELi4E"
 MAIN_B6_INSTANCE = "gram_moments_tile_kernelILi0ELi9ELi4E"
 B6_KERNEL = "gram_moments_tile_kernel<"
+# B6's chunk kernel (D > 8 or R > 16) by the profiler's name
+B6_CHUNK_KERNEL = "gram_moments_kernel<"
+# the widest D the cross-term kernel takes (kCrossMaxD)
+CROSS_MAX_D = 64
 
 
 def ptxas_of(report, instance):
@@ -1163,32 +1279,36 @@ def gram_moments_bound(N, D, R):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_fused(fm, R, reps, plain_reps):
-    """B5 at N=50,000, D=4: the profiler's device time per launch (`ms`)
-    beside the event time, the plain twin's time, its error and bounds."""
+def time_fused(fm, R, reps, plain_reps, D=ITER_D):
+    """B5 at N=50,000 (D=4 unless given), square (diag_offset 0), on inputs
+    centred as the wrapper centres them above D = 8: the profiler's device
+    time per launch (`ms`) beside the event time, the plain twin's time,
+    its error and bounds (the cross-term kernel's, 8 < D <= 64 and R <= 16,
+    by cross_matvec_bounds)."""
     import torch
 
-    X, _, V, ls, v = fused_inputs(ITER_N, None, ITER_D, R, seed=11)
-    Xs = (X / ls).contiguous()
+    X, _, V, ls, v = fused_inputs(ITER_N, None, D, R, seed=11)
+    Xs = fm._centred(X / ls, X / ls)[0].contiguous()
     v1 = v.reshape(1)
 
     def run():
-        return fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0)
+        return fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0, diag_offset=0)
 
     ms = device_ms(run, reps=reps, warmup=1, kernel="gram_matvec")[0]
     event_ms = cuda_ms(run, reps=reps, warmup=1)
-    plain_ms = cuda_ms(lambda: fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0),
+    plain_ms = cuda_ms(lambda: fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0, 0),
                        reps=plain_reps, warmup=1)
     out = run()
-    ref = fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0)
-    check(torch.isfinite(out).all(), f"gram_matvec_fused N={ITER_N} R={R}: non-finite output")
+    ref = fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0, 0)
+    check(torch.isfinite(out).all(), f"gram_matvec_fused N={ITER_N} D={D} R={R}: non-finite output")
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
     tol = FUSED_FWD_TOL_50K[R]
-    check(rel <= tol, f"gram_matvec_fused N={ITER_N} R={R}: rel err {rel} > {tol}")
-    return {"N": ITER_N, "D": ITER_D, "R": R, "dtype": "float32", "ms": ms,
+    check(rel <= tol, f"gram_matvec_fused N={ITER_N} D={D} R={R}: rel err {rel} > {tol}")
+    bounds = (cross_matvec_bounds if 8 < D <= CROSS_MAX_D and R <= 16 else fused_matvec_bounds)
+    return {"N": ITER_N, "D": D, "R": R, "dtype": "float32", "ms": ms,
             "event_ms": event_ms, "plain_ms": plain_ms,
-            **fused_matvec_bounds(ITER_N, ITER_N, ITER_D, R), "max_abs_err": err,
+            **bounds(ITER_N, ITER_N, D, R), "max_abs_err": err,
             "rel_err": rel, "rel_tol": tol, "library_ms": None}
 
 
@@ -1266,6 +1386,130 @@ def iterative_times(models, Xs, fm, smi):
     del K, V
     torch.cuda.empty_cache()
     rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return rec
+
+
+# --- the iterative exact GP at D = 12 (B5's cross-term kernel) --------------
+
+# bench.py:456-483's N=50k iterative configuration (ITER_OPTS, fused,
+# materialize=False, noise 0.1, Y = sin(x_1) + 0.1 eps, float32) on 12
+# input dimensions, X ~ U[0,10)^12, with an ARD RBF whose lengthscales start
+# at 3.0: no more diagonal a Gram than the D=4 model's at lengthscale 1
+D12, D12_LS = 12, 3.0
+
+
+def d12_data(seed=0):
+    """X ~ U[0,10)^12, Y = sin(x_1) + 0.1 eps, float32; ITER_PRED new points."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.random((ITER_N, D12)).astype(np.float32) * 10.0
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((ITER_N, 1))).astype(np.float32)
+    Xs = rng.random((ITER_PRED, D12)).astype(np.float32) * 10.0
+    return X, Y, Xs
+
+
+def d12_model(X, Y, dtype, fused):
+    """GPRegression over RBF(12, ARD=True, lengthscale=3.0), noise 0.1, with
+    ITER_OPTS: fused=True, materialize=False, or the default
+    (materialize="auto", the Gram materialized at N=50,000)."""
+    from gpy_tpu_torch.inference import IterativeGaussianInference
+    from gpy_tpu_torch.kern import RBF
+    from gpy_tpu_torch.models import GPRegression
+
+    opts = dict(ITER_OPTS, materialize=False, fused=True) if fused else dict(ITER_OPTS)
+    return GPRegression(X, Y, RBF(D12, ARD=True, lengthscale=D12_LS, device="cuda", dtype=dtype),
+                        noise_var=0.1, inference_method=IterativeGaussianInference(**opts),
+                        device="cuda", dtype=dtype)
+
+
+def launches_by_name(fn, expect):
+    """Launches of the kernels whose profiler names hold each key of
+    `expect` over one call of fn (torch.profiler). A session that lost
+    device events is run again, up to five in all, and the fullest kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    best = None
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        got = {name: sum(e.count for e in rows if name in e.key) for name in expect}
+        if best is None or sum(got.values()) > sum(best.values()):
+            best = got
+        if best == expect:
+            break
+    return best
+
+
+def run_iterative_d12(fm, smi):
+    """The fused iterative exact GP at D = 12, the main path of B5's
+    cross-term kernel: drive_iterative on the float32 model with the
+    counters set to 0 just before it (its predictive RMSE recorded, not
+    checked); each objective_and_grad 49 B5 launches (48 CG products, the
+    surrogate's forward) and one B6, all 49 under the cross-term kernel's
+    profiler name and B6's under its chunk kernel's; the float32 NLML and
+    its 14 gradient entries against a float64 materialized twin at the same
+    probes (ITER_NLML_TOL, ITER_GRAD_TOL); the NLML+gradient and the predict
+    at 256 points (48 launches of B5's tensor-core kernel, DMAX 0) timed;
+    the cross-term kernel (R = 9) and the tensor-core one (R = 256) at
+    N=50,000, D=12 by device time beside their twins and bounds."""
+    import numpy as np
+    import torch
+
+    t_start = time.perf_counter()
+    X, Y, Xs = d12_data()
+    m = d12_model(X, Y, torch.float32, fused=True)
+    reset_counters()
+    r = drive_iterative(m, Xs, check_rmse=False)
+    steps = r["launches_per_step"]
+    for step, c in steps.items():
+        check(c["gram_matvec_fused"] > 0, f"iterative D=12: {step} launched no gram_matvec_fused")
+    og = steps["objective_and_grad"]
+    per_eval = {CROSS_B5_KERNEL: ITER_OPTS["max_cg"] + 1, B6_CHUNK_KERNEL: 1}
+    check(og["gram_matvec_fused"] == per_eval[CROSS_B5_KERNEL] and og["gram_moments"] == 1,
+          f"iterative D=12: objective_and_grad launched {og}, not 49 B5 and 1 B6")
+    rec = {"phase": "iterative_d12", "N": ITER_N, "D": D12, "lengthscale_start": D12_LS,
+           "n_pred": ITER_PRED, "options": ITER_OPTS, "dtype": "float32", "fused": True,
+           "drive": {k: v for k, v in r.items() if k not in ("x0", "g0")},
+           # the steps that run B5 at R <= 16 only: every launch is the
+           # cross-term kernel's (a predict's also run its R = 256 CG)
+           "cross_launches": sum(steps[k]["gram_matvec_fused"]
+                                 for k in ("log_likelihood", "objective_and_grad", "optimize"))}
+    x0 = r["x0"]
+    m64 = d12_model(X, Y, torch.float64, fused=False)
+    f64, g64 = m64._objective_and_grad(x0)
+    del m64
+    torch.cuda.empty_cache()
+    check(len(g64) == D12 + 2 and len(r["g0"]) == D12 + 2, "iterative D=12: not 14 gradient entries")
+    rec["nlml_rel_vs_f64"] = abs(r["f0"] - f64) / abs(f64)
+    rec["grad_rel_vs_f64"] = float(np.max(np.abs(r["g0"] - g64)) / np.max(np.abs(g64)))
+    rec["grad_rel_vs_f64_by_entry"] = (np.abs(r["g0"] - g64) / np.abs(g64)).tolist()
+    rec["nlml_f32"], rec["nlml_f64"], rec["grad_f64"] = r["f0"], f64, g64.tolist()
+    rec["limits"] = {"nlml_rel": ITER_NLML_TOL, "grad_rel": ITER_GRAD_TOL}
+    rec["launches_by_profiler_name"] = launches_by_name(lambda: m._objective_and_grad(x0), per_eval)
+    rec["objective_and_grad_ms"] = host_ms(lambda: m._objective_and_grad(x0), reps=3, warmup=1)
+    m.predict(Xs)  # the posterior at x0 is cached from here on
+    rec["predict_ms_posterior_cached"] = host_ms(lambda: m.predict(Xs), reps=2, warmup=0)
+    rec["profile"] = profile_objective(m, x0, what=f"one objective_and_grad, iterative fused, "
+                                                   f"N={ITER_N}, D={D12} float32")
+    del m
+    torch.cuda.empty_cache()
+    rec["cross_kernel"] = time_fused(fm, 9, reps=10, plain_reps=1, D=D12)
+    rec["wide_kernel_r256"] = time_fused(fm, 256, reps=5, plain_reps=1, D=D12)
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["nvidia_smi"] = smi
+    emit(rec)  # before the limits below, so that a failing run still shows its readings
+    check(rec["nlml_rel_vs_f64"] <= ITER_NLML_TOL,
+          f"iterative D=12: float32 NLML vs float64: rel {rec['nlml_rel_vs_f64']}")
+    check(rec["grad_rel_vs_f64"] <= ITER_GRAD_TOL,
+          f"iterative D=12: float32 gradient vs float64: rel {rec['grad_rel_vs_f64']}")
+    check(rec["launches_by_profiler_name"] == per_eval,
+          f"iterative D=12: objective_and_grad's kernels by name {rec['launches_by_profiler_name']}, "
+          f"not {per_eval}")
     return rec
 
 
@@ -6430,6 +6674,9 @@ def main() -> int:
     del models, mi
     torch.cuda.empty_cache()
 
+    # the iterative exact GP at D = 12: B5's cross-term kernel
+    d12 = run_iterative_d12(fm, smi)
+
     # the batched exact GP (bench.py's HMC stage)
     Xh, Yh = hmc_data()
     mh = hmc_model(Xh, Yh, torch.float32)
@@ -6517,8 +6764,10 @@ def main() -> int:
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
         "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:71",
         "launches": iter_rec["fused"]["launches"]["gram_matvec_fused"]
+        + d12["drive"]["launches"]["gram_matvec_fused"]
         + surf_rec["launches_gram_matvec_fused"] + par_rec["launches"]["gram_matvec_fused"],
         "launches_iterative": iter_rec["fused"]["launches"]["gram_matvec_fused"],
+        "launches_iterative_d12": d12["drive"]["launches"]["gram_matvec_fused"],
         "launches_surface": surf_rec["launches_gram_matvec_fused"],
         "launches_parallel": par_rec["launches"]["gram_matvec_fused"],
         "max_abs_err": max([fused_err, surf_rec["b5_max_abs_err"], par_rec["b5_max_abs_err"]]
@@ -6542,12 +6791,29 @@ def main() -> int:
                  "predict_var_rel_err_vs_f64": iter_rec["predict_var_vs_f64"]["rel_err"],
                  "ptxas": ptxas_of(reports["gram_matvec_fused"], WIDE_B5_INSTANCE)},
     }, {
+        "name": "gram_matvec_fused_cross", "route": "cuda",
+        "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
+        "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:71",
+        "kernel": CROSS_B5_INSTANCE, "route_detail": "mma.sync m16n8k8 TF32, 3 passes (cross term)",
+        "launches": d12["cross_launches"],
+        "launches_per_objective_and_grad_by_name": d12["launches_by_profiler_name"],
+        "max_abs_err": max(fused_rec["cross_max_abs_err"], d12["cross_kernel"]["max_abs_err"]),
+        "main_path_rel_err": d12["cross_kernel"]["rel_err"],
+        "main_path_rel_tol": d12["cross_kernel"]["rel_tol"],
+        "shape": f"N={ITER_N}, D={D12}, R=9", "ms": d12["cross_kernel"]["ms"],
+        "event_ms": d12["cross_kernel"]["event_ms"], "plain_ms": d12["cross_kernel"]["plain_ms"],
+        "bound_ms": d12["cross_kernel"]["bound_ms"], "bound_by": d12["cross_kernel"]["bound_by"],
+        "bound_direct_ms": d12["cross_kernel"]["bound_direct_ms"],
+        "ptxas": ptxas_of(reports["gram_matvec_fused"], CROSS_B5_INSTANCE), "library_ms": None,
+        "nlml_rel_vs_f64_d12": d12["nlml_rel_vs_f64"], "grad_rel_vs_f64_d12": d12["grad_rel_vs_f64"],
+    }, {
         "name": "gram_moments", "route": "cuda",
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
         "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:269",
         "launches": iter_rec["fused"]["launches"]["gram_moments"]
-        + surf_rec["launches_gram_moments"],
+        + d12["drive"]["launches"]["gram_moments"] + surf_rec["launches_gram_moments"],
         "launches_iterative": iter_rec["fused"]["launches"]["gram_moments"],
+        "launches_iterative_d12_chunk_kernel": d12["drive"]["launches"]["gram_moments"],
         "launches_surface": surf_rec["launches_gram_moments"],
         "max_abs_err": mom["max_abs_err_vs_f64_plain"], "main_path_rel_err": mom["rel_err"],
         "main_path_rel_tol": FUSED_BWD_TOL_50K, "shape": f"N={ITER_N}, D={ITER_D}, R=9",

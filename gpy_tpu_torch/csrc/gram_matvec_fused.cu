@@ -18,10 +18,13 @@
 // to 512 rows and R to 128 lanes, and use the expansion |x|^2 + |x'|^2 -
 // 2 x.x' (clamped) above D = 8.
 //
-// Here r2 is a sum of direct squared differences for every D (exact; a
-// square Gram's diagonal is exactly v), ragged edges are masked instead of
-// padded, and every index that multiplies two extents is 64-bit (N*M is
-// 2.5e9 at N = 50k).
+// Here r2 is a sum of direct squared differences (exact; a square Gram's
+// diagonal is exactly v) in every kernel but B5's for 8 < D <= 64 and
+// R <= 16, which forms it as the TPU kernel does above D = 8, by the
+// expansion with the cross term on the tensor cores, and sets it to 0 on
+// the diagonal the caller names, so that K_ii is exactly v there too.
+// Ragged edges are masked instead of padded, and every index that
+// multiplies two extents is 64-bit (N*M is 2.5e9 at N = 50k).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
 // cores): at N = M = 50,000, D = 4, R = 9 the kernel reads ~2.6 MB and
@@ -30,20 +33,14 @@
 // every entry also runs on the special-function units.
 //
 // B5 for D <= 8 and R <= 16 (the main path) is the register-tile kernel
-// gram_matvec_tile_kernel below. The chunk kernel takes D > 8: one
-// 256-thread block owns 64 output rows and one chunk of RC right-hand-side
-// columns (grid.y walks the chunks, so any R works). It walks every
-// 64-column tile of X2: the tile's inputs are staged 16 dimensions at a
-// time in shared memory (transposed and padded, as in rbf_gram.cu), each
-// thread forms a 4x4 block of K in registers, and contracts it with the
-// tile's V rows (staged in shared memory with row stride RC + 1, so the
-// reads are conflict-free) into a 4 x RC accumulator, RC the smallest of 1,
-// 9, 16 that holds R. After the last tile the 16 threads that share rows
-// sum their accumulators with warp shuffles, and each output entry is
-// written once: no atomics, and the result does not depend on scheduling.
+// gram_matvec_tile_kernel below; for 8 < D <= 64 and R <= 16 (the CG of an
+// iterative exact GP on more than 8 input dimensions) it is the cross-term
+// kernel gram_matvec_cross_kernel: rows staged once, column tiles copied
+// ahead with cp.async, the expansion's cross term in 3xTF32 on mma.sync,
+// r2, K and the contraction with V on the SIMT cores.
 //
-// B5 for R > 16 (a predict's n* right-hand sides), any D, is the
-// tensor-core kernel gram_matvec_tc_kernel below: K formed once per block
+// B5 for R > 16 (a predict's n* right-hand sides), any D, and for D > 64
+// at any R, is the tensor-core kernel gram_matvec_tc_kernel below: K formed once per block
 // of 128 rows and 128 columns of R (twice at R = 256) by producer warps on
 // the SIMT cores, split into TF32 hi and lo, and contracted with V's split
 // tile in 3xTF32 on wgmma by consumer warps, each tile's product promoted
@@ -56,7 +53,7 @@
 //
 // B6 for D <= 8 and R <= 16 (the main path) is the register-tile kernel
 // gram_moments_tile_kernel below, on B5's column walk. The chunk kernel
-// takes the rest, on the chunk kernel's tile walk, square: per tile a
+// gram_moments_kernel takes the rest, square, in 64 x 64 tiles: per tile a
 // thread forms its 4x4 block of W (R staged 16 at a time), r2, K and
 // -dK/dr2, then the moments of one 16-dimension chunk (grid.y walks the
 // chunks, so any D works; r2 is recomputed per chunk). In both, each thread
@@ -70,10 +67,10 @@
 // uses no fast-math flag and flushes no denormals, so this stays 0, not
 // inf * 0.
 //
-// What the chunk kernels leave on the table: the tensor cores, TMA and a
+// What B6's chunk kernel leaves on the table: the tensor cores, TMA and a
 // persistent schedule, and re-staging of the row tile for every column
-// tile; the register-tile kernel takes the last. Where the tensor-core
-// kernel's time goes: PERF.md.
+// tile; the register-tile kernels and B5's cross-term kernel take the
+// last. Where the tensor-core kernels' time goes: PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,28 +84,13 @@ constexpr int kChunk = 16;               // dims (or R columns) staged per pass
 constexpr int kBlock = kThreads * kThreads;
 constexpr int kMomStride = kChunk + 1;   // one partial row: [s0, m_1..m_16]
 
-// Blocks per SM the register budget is set for: 65,536 registers / (256
-// threads * 2) = 128 a thread. On an H100 this budget ran the 16-column
-// matvec and the moments faster than the compiler's unbounded choice.
+// Blocks per SM B6's chunk kernel's register budget is set for: 65,536
+// registers / (256 threads * 2) = 128 a thread. On an H100 this budget ran
+// the moments faster than the compiler's unbounded choice.
 constexpr int kMinBlocks = 2;
 
-// K and -dK/dr2 from r2 for each family; constants are the float32 values
-// of the reference's jnp.sqrt(jnp.float32(3.0)) and sqrt(5).
-template <int FAM>
-__device__ __forceinline__ float k_of_r2(float r2, float v) {
-  if (FAM == 0) return v * expf(-0.5f * r2);
-  const float r = sqrtf(r2 + 1e-30f);
-  if (FAM == 1) {
-    const float s = 1.7320508075688772f * r;
-    return v * (1.0f + s) * expf(-s);
-  }
-  if (FAM == 2) {
-    const float s = 2.23606797749979f * r;
-    return v * (1.0f + s + s * s / 3.0f) * expf(-s);
-  }
-  return v * expf(-r);
-}
-
+// -dK/dr2 and K from r2 for each family (B6's chunk kernel); constants are
+// the float32 values of the reference's jnp.sqrt(jnp.float32(3.0)) and sqrt(5).
 template <int FAM>
 __device__ __forceinline__ void k_and_nkp(float r2, float v, float* k, float* nkp) {
   if (FAM == 0) {
@@ -145,101 +127,6 @@ __device__ __forceinline__ void stage(float (*s)[kTile + 1], const float* __rest
     const int gk = k0 + k;
     const int64_t gr = row0 + rr;
     s[k][rr] = (gr < rows && gk < width) ? a[gr * width + gk] : 0.0f;
-  }
-}
-
-template <int FAM, int RC>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
-gram_matvec_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
-                   const float* __restrict__ vmat, const float* __restrict__ var,
-                   float* __restrict__ out, int64_t n, int64_t m, int d, int r) {
-  __shared__ float sx[kChunk][kTile + 1];
-  __shared__ float sx2[kChunk][kTile + 1];
-  __shared__ float sv[kTile][RC + 1];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kThreads + tx;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int c0 = blockIdx.y * RC;
-  const float vv = var[0];
-
-  float acc[kPer][RC];
-#pragma unroll
-  for (int a = 0; a < kPer; ++a)
-#pragma unroll
-    for (int c = 0; c < RC; ++c) acc[a][c] = 0.0f;
-
-  for (int64_t col0 = 0; col0 < m; col0 += kTile) {
-    float kv[kPer][kPer];
-#pragma unroll
-    for (int a = 0; a < kPer; ++a)
-#pragma unroll
-      for (int b = 0; b < kPer; ++b) kv[a][b] = 0.0f;
-
-    for (int d0 = 0; d0 < d; d0 += kChunk) {
-      __syncthreads();  // the previous pass is done with sx, sx2 and sv
-      stage(sx, xs, row0, n, d0, d, tid);
-      stage(sx2, x2s, col0, m, d0, d, tid);
-      if (d0 == 0) {
-        for (int idx = tid; idx < kTile * RC; idx += kBlock) {
-          const int j = idx / RC;
-          const int c = idx % RC;
-          const int64_t gj = col0 + j;
-          sv[j][c] = (gj < m && c0 + c < r) ? vmat[gj * r + c0 + c] : 0.0f;
-        }
-      }
-      __syncthreads();
-      const int kn = min(kChunk, d - d0);
-      for (int k = 0; k < kn; ++k) {
-        float xa[kPer], xb[kPer];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a) xa[a] = sx[k][ty + a * kThreads];
-#pragma unroll
-        for (int b = 0; b < kPer; ++b) xb[b] = sx2[k][tx + b * kThreads];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a)
-#pragma unroll
-          for (int b = 0; b < kPer; ++b) {
-            const float diff = xa[a] - xb[b];
-            kv[a][b] = fmaf(diff, diff, kv[a][b]);
-          }
-      }
-    }
-
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) {
-      const bool col_ok = col0 + tx + b * kThreads < m;
-#pragma unroll
-      for (int a = 0; a < kPer; ++a) kv[a][b] = col_ok ? k_of_r2<FAM>(kv[a][b], vv) : 0.0f;
-    }
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) {
-#pragma unroll
-      for (int c = 0; c < RC; ++c) {
-        const float vb = sv[tx + b * kThreads][c];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a) acc[a][c] = fmaf(kv[a][b], vb, acc[a][c]);
-      }
-    }
-  }
-
-  // the 16 threads of a half-warp share rows: sum over their columns
-#pragma unroll
-  for (int a = 0; a < kPer; ++a)
-#pragma unroll
-    for (int c = 0; c < RC; ++c)
-#pragma unroll
-      for (int off = kThreads / 2; off > 0; off >>= 1)
-        acc[a][c] += __shfl_xor_sync(0xffffffffu, acc[a][c], off);
-
-#pragma unroll
-  for (int a = 0; a < kPer; ++a) {
-    const int64_t row = row0 + ty + a * kThreads;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < RC; ++c)
-      if (c % kThreads == tx && c0 + c < r) out[row * r + c0 + c] = acc[a][c];
   }
 }
 
@@ -459,7 +346,7 @@ constexpr float kCoordScale = FAM == 0 ? 0.84932180028801904f    // sqrt(log2(e)
 constexpr float kLn2 = 0.69314718055994531f;
 
 // K from the scaled r2' with one ex2.approx on the SFU, the multiply by v
-// last; r' as k_of_r2's r.
+// last; r' = sqrt(r2' + 1e-30) as the reference's r.
 template <int FAM>
 __device__ __forceinline__ float k_of_r2_fast(float r2, float v) {
   if (FAM == 0) return v * ex2_approx(-r2);
@@ -1246,6 +1133,342 @@ gram_matvec_tc_kernel(const float* __restrict__ xs, const float* __restrict__ x2
   }
 }
 
+// B5 for 8 < D <= kCrossMaxD and R <= 16 (an iterative exact GP on more
+// than 8 input dimensions: its CG's 1 + n_probes columns), redesigned for
+// Hopper with the cross term on the tensor cores. r2 is the TPU kernel's
+// expansion above D = 8 (gpy_tpu/ops/pallas_gram_matvec.py:98-106), |x|^2 +
+// |y|^2 - 2 x.y clamped at 0, on the family's folded coordinates x' = c x
+// (kCoordScale); the wrapper centres both sides on the columns' mean first,
+// which leaves every distance as it was and shrinks |x|^2, and with it the
+// expansion's rounding. One block owns 128 rows, MB m-blocks of 16 a warp
+// (two, in 4 warps, where three such blocks fit in an SM's shared memory,
+// else one, in 8: launch_cross), and stages them once: their 2 x' padded
+// with zeros to a multiple of 8 dimensions and split into TF32 hi and lo
+// (split_tf32) in mma.sync m16n8k8's A-fragment order in shared memory, and
+// |x'|^2 of the thread's rows (g, g + 8 of each m-block, g = lane / 4) in
+// registers, in float32. The block walks X2 and V in tiles of kCrossCols columns: the raw
+// rows of tile j + 1 are copied into shared memory with 16-byte cp.async
+// (the ragged last tile zero-filled) while tile j computes, and each landed
+// tile is re-laid once, a warp an 8-column step: X2's folded coordinates
+// split hi / lo in B-fragment order, -|y'|^2 of each column (its four
+// lanes' parts summed in a fixed order), V's rows padded to v_stride. One
+// barrier a tile. A warp takes a tile in passes of kCrossPass steps: each
+// step's accumulators (rows g, g + 8 by columns 2t, 2t + 1, t = lane % 4,
+// of each m-block) start at -(|x'|^2 + |y'|^2) and take lo.hi, hi.lo and
+// hi.hi of every 8 dimensions (3xTF32, lo.lo dropped), so they end at
+// -r2'; then K = v ex2(-max(r2', 0)) on the SFU with the multiply by v last
+// (k_of_r2_fast), and K V into MB x 2 RC float32 FFMA accumulators, each V
+// row read from shared memory serving every m-block. `diag` >= 0 says row i
+// of xs is row i + diag of x2s (a square Gram, or a row slab of one): there
+// r2' is set to 0, so K_ii is exactly v; only the passes that meet that
+// diagonal test for it. After the last tile the four lanes that share a
+// row sum their accumulators with shuffles in a fixed order, and each
+// output entry is written once by one thread: no atomics, and a second
+// launch repeats bit for bit. A row's sum does not depend on where it sits
+// in its block, so a row slab equals the square Gram's rows bit for bit.
+//
+// Bound on an H100 SXM at N = M = 50,000, D = 12, R = 9: the SIMT
+// operations of the direct form, (3D + 3) + 2R = 57 an entry, are 2.13 ms
+// at 67 TFLOP/s; with the cross term on the tensor cores (3 x 2 x 16 TF32
+// operations an entry, 0.48 ms at 495 TFLOP/s) the SIMT cores keep the
+// contraction's 2R and ~4 for r2 and K: 0.82 ms. The parts run one after
+// another rather than beside each other: at D = 12, R = 9 the contraction,
+// the cross term, the re-layout and the exp take about 1.2, 1.1, 0.6 and 0.3
+// ms of 3.2 (PERF.md). The cross term on wgmma (m64n32k8, A from registers,
+// B from shared memory, waited on per 8 dimensions) ran 2% slower there on
+// an H100 and was not kept.
+constexpr int kCrossRows = 128;      // rows a block: 8 m-blocks of 16
+constexpr int kCrossCols = 64;       // columns of X2 (rows of V) a tile
+constexpr int kCrossSteps = kCrossCols / 8;
+constexpr int kCrossPass = 4;        // 8-column steps a pass
+constexpr int kCrossMaxD = 64;       // past it the rows' fragments and a tile's
+                                     // pass 227 KB of shared memory
+// A block's warps and threads with MB m-blocks a warp: 8 and 256 at MB = 1,
+// 4 and 128 at MB = 2
+template <int MB>
+constexpr int kCrossWarps = kCrossRows / 16 / MB;
+template <int MB>
+constexpr int kCrossThreads = 32 * kCrossWarps<MB>;
+
+// Blocks per SM the register budget is set for: 3, so that the 391 blocks
+// of N = 50,000 are resident at once (168 registers a thread at MB = 2, 80
+// at MB = 1), but 2 at MB = 1, R = 16 (128), where 80 spilled 144 bytes and
+// ran 1.2x slower on an H100. At 4 blocks of MB = 2 (128 registers) R = 9
+// spilled and ran 3-4% slower at D = 12 (PERF.md).
+constexpr int cross_min_blocks(int rc, int mb) { return mb == 1 && rc > 9 ? 2 : 3; }
+
+// Floats of the cross kernel's dynamic shared memory at D = d: the rows' A
+// fragments, two tiles' B fragments, column norms and re-laid V rows, and
+// two raw tiles of X2 and V; every part a multiple of 4 floats.
+__host__ __device__ constexpr int cross_smem_floats(int d, int rc, int vstride) {
+  return (kCrossRows / 16) * ((d + 7) / 8) * 256 + 2 * kCrossSteps * ((d + 7) / 8) * 128 +
+         2 * kCrossCols + 2 * kCrossCols * vstride + 2 * kCrossCols * d + 2 * kCrossCols * rc;
+}
+
+// c += a b on one m16n8k8 tile: mma.sync, TF32 operands (the tensor cores
+// read the top 19 bits of each float), float32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const float4& a, float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)), "r"(__float_as_uint(a.z)),
+        "r"(__float_as_uint(a.w)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+template <int FAM, int RC, int MB>
+__global__ void __launch_bounds__(kCrossThreads<MB>, cross_min_blocks(RC, MB))
+gram_matvec_cross_kernel(const float* __restrict__ xs, const float* __restrict__ x2s,
+                         const float* __restrict__ vmat, const float* __restrict__ var,
+                         float* __restrict__ out, int64_t n, int64_t m, int d, int r,
+                         int64_t diag) {
+  constexpr float scale = kCoordScale<FAM>;
+  constexpr int kStride = v_stride<RC>();
+  constexpr int kWarps = kCrossWarps<MB>;
+  constexpr int kThreads = kCrossThreads<MB>;
+  static_assert(kCrossSteps % kWarps == 0, "the warps share a tile's steps evenly");
+  extern __shared__ __align__(16) float cross_smem[];
+  const int ks_n = (d + 7) / 8;                     // 8-dimension steps
+  const int frag_n = kCrossSteps * ks_n * 128;      // floats of a tile's B fragments
+  float* rowf = cross_smem;                         // [m-block][ks][hi, lo][lane][4]
+  float* bfr = rowf + (kCrossRows / 16) * ks_n * 256;  // [2][step][ks][lane][hi b0, b1, lo b0, b1]
+  float* nrm = bfr + 2 * frag_n;                    // [2][kCrossCols]: -|y'|^2
+  float* cv = nrm + 2 * kCrossCols;                 // [2][kCrossCols][kStride]
+  float* rawx = cv + 2 * kCrossCols * kStride;      // [2][kCrossCols * d]
+  float* rawv = rawx + 2 * kCrossCols * d;          // [2][kCrossCols * RC], stride r
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int t = lane % 4;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kCrossRows;
+  const int64_t wrow = row0 + warp * MB * 16;  // the warp's first row
+  const float vv = var[0];
+
+  // the block's rows, once: 2 x' in A-fragment order (a0..a3: rows g, g + 8,
+  // g, g + 8 by dimensions t, t, t + 4, t + 4 of each step), hi and lo
+  for (int i = tid; i < (kCrossRows / 16) * ks_n * 32; i += kThreads) {
+    const int l = i % 32;
+    const int ks = (i / 32) % ks_n;
+    const int mbi = i / (32 * ks_n);
+    float x[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int64_t row = row0 + mbi * 16 + l / 4 + (q & 1) * 8;
+      const int k = ks * 8 + l % 4 + (q & 2) * 2;
+      x[q] = (row < n && k < d) ? 2.0f * __fmul_rn(scale, xs[row * d + k]) : 0.0f;
+    }
+    float4 hi, lo;
+    split_tf32(x[0], hi.x, lo.x);
+    split_tf32(x[1], hi.y, lo.y);
+    split_tf32(x[2], hi.z, lo.z);
+    split_tf32(x[3], hi.w, lo.w);
+    float* dst = rowf + (mbi * ks_n + ks) * 256 + l * 4;
+    *reinterpret_cast<float4*>(dst) = hi;
+    *reinterpret_cast<float4*>(dst + 128) = lo;
+  }
+  // |x'|^2 of the thread's rows g and g + 8 of each of its m-blocks
+  float nx[MB][2];
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = wrow + mb * 16 + lane / 4 + h * 8;
+      float sq = 0.0f;
+      for (int k = 0; k < d; ++k) {
+        const float x = row < n ? __fmul_rn(scale, xs[row * d + k]) : 0.0f;
+        sq = fmaf(x, x, sq);
+      }
+      nx[mb][h] = sq;
+    }
+
+  const int tiles = static_cast<int>((m + kCrossCols - 1) / kCrossCols);
+  auto valid = [&](int tile) {  // the tile's columns inside M
+    const int64_t left = m - static_cast<int64_t>(tile) * kCrossCols;
+    return static_cast<int>(left < kCrossCols ? left : kCrossCols);
+  };
+  auto issue = [&](int tile) {
+    const int64_t col0 = static_cast<int64_t>(tile) * kCrossCols;
+    const int nx2 = valid(tile) * d, nv = valid(tile) * r;
+    float* dx = rawx + (tile % 2) * kCrossCols * d;
+    float* dv = rawv + (tile % 2) * kCrossCols * RC;
+    for (int c = tid; 4 * c < nx2; c += kThreads)
+      copy_async16(dx + 4 * c, x2s + col0 * d + 4 * c, min(16, 4 * (nx2 - 4 * c)));
+    for (int c = tid; 4 * c < nv; c += kThreads)
+      copy_async16(dv + 4 * c, vmat + col0 * r + 4 * c, min(16, 4 * (nv - 4 * c)));
+    copy_async_commit();
+  };
+  // warp w re-lays steps w, w + kWarps, ... of a tile: in each, lane l
+  // takes column j = 8 step + l / 4 and, of each 8 dimensions, t and t + 4:
+  // its B fragment, and its part of -|y'|^2, which the column's four lanes
+  // then sum in a fixed order
+  auto relayout = [&](int buf, int cols) {
+#pragma unroll
+    for (int st = warp; st < kCrossSteps; st += kWarps) {
+      const int j = st * 8 + lane / 4;
+      const float* rx = rawx + buf * kCrossCols * d + j * d + t;
+      float* bf = bfr + buf * frag_n + st * ks_n * 128 + lane * 4;
+      const bool in = j < cols;
+      float sq = 0.0f;
+      for (int ks = 0; ks < ks_n; ++ks) {
+        const int k = ks * 8 + t;
+        const float y0 = (in && k < d) ? __fmul_rn(scale, rx[ks * 8]) : 0.0f;
+        const float y1 = (in && k + 4 < d) ? __fmul_rn(scale, rx[ks * 8 + 4]) : 0.0f;
+        sq = fmaf(y0, y0, sq);
+        sq = fmaf(y1, y1, sq);
+        float4 f;  // hi b0, hi b1, lo b0, lo b1
+        split_tf32(y0, f.x, f.z);
+        split_tf32(y1, f.y, f.w);
+        *reinterpret_cast<float4*>(bf + ks * 128) = f;
+      }
+      sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+      if (t == 0) nrm[buf * kCrossCols + j] = -sq;
+    }
+    const float* rv = rawv + buf * kCrossCols * RC;
+    float* cvb = cv + buf * kCrossCols * kStride;
+#pragma unroll
+    for (int it = 0; it < (kCrossCols * kStride + kThreads - 1) / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      const int j = i / kStride;
+      const int c = i - j * kStride;
+      if ((kCrossCols * kStride) % kThreads == 0 || i < kCrossCols * kStride)
+        cvb[i] = (j < cols && c < r) ? rv[j * r + c] : 0.0f;
+    }
+  };
+
+  float acc[MB][2 * RC];  // per m-block rows g and g + 8, partial over the thread's columns
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int c = 0; c < 2 * RC; ++c) acc[mb][c] = 0.0f;
+  if (tiles > 0) {
+    issue(0);
+    copy_async_wait();
+    __syncthreads();
+    relayout(0, valid(0));
+    if (tiles > 1) issue(1);
+  }
+  const float* at = rowf + warp * MB * ks_n * 256 + lane * 4;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int cur = tile % 2;
+    // tile + 1 has landed; every thread is done with tile - 1's re-laid
+    // buffers and with tile's raw ones
+    copy_async_wait();
+    __syncthreads();
+    if (tile + 1 < tiles) relayout(cur ^ 1, valid(tile + 1));
+    if (tile + 2 < tiles) issue(tile + 2);
+    const int64_t col0 = static_cast<int64_t>(tile) * kCrossCols;
+    const float* bt = bfr + cur * frag_n + lane * 4;
+    const float* nt = nrm + cur * kCrossCols;
+    const float* vt = cv + cur * kCrossCols * kStride;
+#pragma unroll
+    for (int p = 0; p < kCrossSteps / kCrossPass; ++p) {
+      // -r2' of (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) of each
+      // m-block and step
+      float c[MB][kCrossPass][4];
+#pragma unroll
+      for (int s = 0; s < kCrossPass; ++s) {
+        const float2 y = *reinterpret_cast<const float2*>(nt + (p * kCrossPass + s) * 8 + 2 * t);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          c[mb][s][0] = y.x - nx[mb][0];
+          c[mb][s][1] = y.y - nx[mb][0];
+          c[mb][s][2] = y.x - nx[mb][1];
+          c[mb][s][3] = y.y - nx[mb][1];
+        }
+      }
+      for (int ks = 0; ks < ks_n; ++ks) {
+        float4 ah[MB], al[MB];
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          ah[mb] = *reinterpret_cast<const float4*>(at + (mb * ks_n + ks) * 256);
+          al[mb] = *reinterpret_cast<const float4*>(at + (mb * ks_n + ks) * 256 + 128);
+        }
+#pragma unroll
+        for (int s = 0; s < kCrossPass; ++s) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(bt + ((p * kCrossPass + s) * ks_n + ks) * 128);
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb) {
+            mma_tf32(c[mb][s], al[mb], b.x, b.y);
+            mma_tf32(c[mb][s], ah[mb], b.z, b.w);
+            mma_tf32(c[mb][s], ah[mb], b.x, b.y);
+          }
+        }
+      }
+      const int64_t pc0 = col0 + p * kCrossPass * 8;  // the pass's first column
+      if (diag >= 0 && wrow + diag < pc0 + kCrossPass * 8 &&
+          pc0 < wrow + diag + MB * 16) {         // the pass meets the warp's diagonal
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int s = 0; s < kCrossPass; ++s)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (pc0 + s * 8 + 2 * t + (q & 1) ==
+                  wrow + mb * 16 + lane / 4 + (q & 2) * 4 + diag)
+                c[mb][s][q] = 0.0f;
+      }
+#pragma unroll
+      for (int s = 0; s < kCrossPass; ++s) {
+        float k[MB][4];
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) k[mb][q] = k_of_r2_fast<FAM>(fmaxf(-c[mb][s][q], 0.0f), vv);
+        const float* va = vt + ((p * kCrossPass + s) * 8 + 2 * t) * kStride;  // V row 2t
+        if constexpr (kStride % 4 == 0) {
+#pragma unroll
+          for (int c4 = 0; c4 < (RC + 3) / 4; ++c4) {
+            const float4 pa = reinterpret_cast<const float4*>(va)[c4];
+            const float4 pb = reinterpret_cast<const float4*>(va + kStride)[c4];
+            const float ea[4] = {pa.x, pa.y, pa.z, pa.w}, eb[4] = {pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int cc = 4 * c4 + e;
+              if (cc >= RC) break;
+#pragma unroll
+              for (int mb = 0; mb < MB; ++mb) {
+                acc[mb][cc] = fmaf(k[mb][0], ea[e], acc[mb][cc]);
+                acc[mb][cc] = fmaf(k[mb][1], eb[e], acc[mb][cc]);
+                acc[mb][RC + cc] = fmaf(k[mb][2], ea[e], acc[mb][RC + cc]);
+                acc[mb][RC + cc] = fmaf(k[mb][3], eb[e], acc[mb][RC + cc]);
+              }
+            }
+          }
+        } else {
+          const float ea = va[0], eb = va[kStride];
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb) {
+            acc[mb][0] = fmaf(k[mb][0], ea, acc[mb][0]);
+            acc[mb][0] = fmaf(k[mb][1], eb, acc[mb][0]);
+            acc[mb][RC] = fmaf(k[mb][2], ea, acc[mb][RC]);
+            acc[mb][RC] = fmaf(k[mb][3], eb, acc[mb][RC]);
+          }
+        }
+      }
+    }
+  }
+
+  // the four lanes of a row group hold column partial sums: add them
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) {
+#pragma unroll
+    for (int c = 0; c < 2 * RC; ++c) {
+      acc[mb][c] += __shfl_xor_sync(0xffffffffu, acc[mb][c], 1);
+      acc[mb][c] += __shfl_xor_sync(0xffffffffu, acc[mb][c], 2);
+    }
+    const int64_t row_a = wrow + mb * 16 + lane / 4;
+    const int64_t row_b = row_a + 8;
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      if (c % 4 != t || c >= r) continue;
+      if (row_a < n) out[row_a * r + c] = acc[mb][c];
+      if (row_b < n) out[row_b * r + c] = acc[mb][RC + c];
+    }
+  }
+}
+
 template <int FAM, int DMAX>
 int launch_wide(const float* xs, const float* x2s, const float* v, const float* vmat,
                 float* out, int64_t n, int64_t m, int d, int r, cudaStream_t stream) {
@@ -1278,29 +1501,54 @@ int matvec_tile(const float* xs, const float* x2s, const float* v, const float* 
   return launch_tile<FAM, 16, DMAX>(xs, x2s, v, vmat, out, n, m, d, r, s);
 }
 
+// Two m-blocks a warp where three such blocks fit in an SM's shared memory
+// (at N = 50,000 on an H100: D <= 16, and D <= 24 at R <= 9), else one:
+// two halve the shared-memory reads of V's rows and the B fragments an
+// entry, but at a block of 4 warps, more shared memory than that leaves
+// too few warps resident (PERF.md).
 template <int FAM, int RC>
-int launch_matvec(const float* xs, const float* x2s, const float* v, const float* vmat,
-                  float* out, int64_t n, int64_t m, int d, int r, cudaStream_t stream) {
-  const dim3 block(kThreads, kThreads);
-  const dim3 grid(static_cast<unsigned>((n + kTile - 1) / kTile),
-                  static_cast<unsigned>((r + RC - 1) / RC));
-  gram_matvec_kernel<FAM, RC><<<grid, block, 0, stream>>>(xs, x2s, vmat, v, out, n, m, d, r);
+int launch_cross(const float* xs, const float* x2s, const float* v, const float* vmat,
+                 float* out, int64_t n, int64_t m, int d, int r, int64_t diag,
+                 cudaStream_t stream) {
+  const int bytes = static_cast<int>(sizeof(float)) * cross_smem_floats(d, RC, v_stride<RC>());
+  const bool two = cross_min_blocks(RC, 2) * (bytes + 1024) <= 228 * 1024;  // 1 KB a block reserved
+  const cudaError_t e = cudaFuncSetAttribute(
+      two ? gram_matvec_cross_kernel<FAM, RC, 2> : gram_matvec_cross_kernel<FAM, RC, 1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>((n + kCrossRows - 1) / kCrossRows));
+  if (two)
+    gram_matvec_cross_kernel<FAM, RC, 2><<<grid, kCrossThreads<2>, bytes, stream>>>(
+        xs, x2s, vmat, v, out, n, m, d, r, diag);
+  else
+    gram_matvec_cross_kernel<FAM, RC, 1><<<grid, kCrossThreads<1>, bytes, stream>>>(
+        xs, x2s, vmat, v, out, n, m, d, r, diag);
   return static_cast<int>(cudaGetLastError());
 }
 
-// R <= 16: for D <= 8 the register-tile kernel, otherwise the chunk
-// kernel, its R chunk 1 for a vector, else the smaller of 9 and 16 that
-// holds R. Nine is the CG width of the N = 50k configuration (1 target + 8
-// probes). R > 16 (a predict's n* columns): the tensor-core kernel, its
-// rows' coordinates in registers for D <= 8.
+// The cross-term kernel's R chunk, as matvec_tile's.
+template <int FAM>
+int matvec_cross(const float* xs, const float* x2s, const float* v, const float* vmat,
+                 float* out, int64_t n, int64_t m, int d, int r, int64_t diag, cudaStream_t s) {
+  if (r == 1) return launch_cross<FAM, 1>(xs, x2s, v, vmat, out, n, m, d, r, diag, s);
+  if (r <= 9) return launch_cross<FAM, 9>(xs, x2s, v, vmat, out, n, m, d, r, diag, s);
+  return launch_cross<FAM, 16>(xs, x2s, v, vmat, out, n, m, d, r, diag, s);
+}
+
+// R <= 16: for D <= 8 the register-tile kernel, for D <= kCrossMaxD the
+// cross-term kernel, each with its R chunk 1 for a vector, else the smaller
+// of 9 and 16 that holds R. Nine is the CG width of the N = 50k
+// configuration (1 target + 8 probes). R > 16 (a predict's n* columns), or
+// D > kCrossMaxD: the tensor-core kernel, its rows' coordinates in shared
+// memory for D <= 8. `diag` reaches the one kernel that needs it: the
+// others form r2 by direct differences, exactly 0 between equal points.
 template <int FAM>
 int matvec_family(const float* xs, const float* x2s, const float* v, const float* vmat,
-                  float* out, int64_t n, int64_t m, int d, int r, cudaStream_t s) {
+                  float* out, int64_t n, int64_t m, int d, int r, int64_t diag,
+                  cudaStream_t s) {
   if (d <= 4 && r <= 16) return matvec_tile<FAM, 4>(xs, x2s, v, vmat, out, n, m, d, r, s);
   if (d <= 8 && r <= 16) return matvec_tile<FAM, 8>(xs, x2s, v, vmat, out, n, m, d, r, s);
-  if (r <= 1) return launch_matvec<FAM, 1>(xs, x2s, v, vmat, out, n, m, d, r, s);
-  if (r <= 9) return launch_matvec<FAM, 9>(xs, x2s, v, vmat, out, n, m, d, r, s);
-  if (r <= 16) return launch_matvec<FAM, 16>(xs, x2s, v, vmat, out, n, m, d, r, s);
+  if (d <= kCrossMaxD && r <= 16) return matvec_cross<FAM>(xs, x2s, v, vmat, out, n, m, d, r, diag, s);
   if (d <= 4) return launch_wide<FAM, 4>(xs, x2s, v, vmat, out, n, m, d, r, s);
   if (d <= 8) return launch_wide<FAM, 8>(xs, x2s, v, vmat, out, n, m, d, r, s);
   return launch_wide<FAM, 0>(xs, x2s, v, vmat, out, n, m, d, r, s);
@@ -1352,16 +1600,18 @@ int moments_family(const float* xs, const float* g, const float* vmat, const flo
 extern "C" {
 
 // xs (n, d), x2s (m, d), vmat (m, r), out (n, r); all float32, row-major;
-// x2s and vmat 16-byte aligned.
+// x2s and vmat 16-byte aligned. diag >= 0: row i of xs is row i + diag of
+// x2s (a square Gram: 0; a row slab of one: its first row), where r2 is 0
+// exactly; -1: no such rows.
 int gram_matvec_fused_f32(const float* xs, const float* x2s, const float* v,
                           const float* vmat, float* out, int64_t n, int64_t m, int d,
-                          int r, int family, void* stream) {
+                          int r, int family, int64_t diag, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (family) {
-    case 0: return matvec_family<0>(xs, x2s, v, vmat, out, n, m, d, r, s);
-    case 1: return matvec_family<1>(xs, x2s, v, vmat, out, n, m, d, r, s);
-    case 2: return matvec_family<2>(xs, x2s, v, vmat, out, n, m, d, r, s);
-    case 3: return matvec_family<3>(xs, x2s, v, vmat, out, n, m, d, r, s);
+    case 0: return matvec_family<0>(xs, x2s, v, vmat, out, n, m, d, r, diag, s);
+    case 1: return matvec_family<1>(xs, x2s, v, vmat, out, n, m, d, r, diag, s);
+    case 2: return matvec_family<2>(xs, x2s, v, vmat, out, n, m, d, r, diag, s);
+    case 3: return matvec_family<3>(xs, x2s, v, vmat, out, n, m, d, r, diag, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -23,9 +23,17 @@ lo.hi + hi.lo + hi.hi), each 32-column tile's sum promoted once into a
 float32 running sum. Both are at least as accurate as the reference's
 3-pass "f32x3" and 1-pass "fast"; B6 contracts in FFMA.
 
-Deviation: the reference forms r2 by the expansion |x|^2 + |x'|^2 - 2 x.x'
-above D = 8 (its :178-184); here every D sums direct differences, so a
-square Gram's diagonal is exactly v.
+r2: B5 forms it as the reference does above D = 8 (its :98-106), by the
+expansion |x|^2 + |x'|^2 - 2 x.x' clamped at 0, where D > 8 and R <= 16 (on
+the card with the cross term in 3xTF32 on the tensor cores; the plain twin
+sums direct differences), and by direct differences everywhere else. Above
+D = 8 the wrapper first subtracts the columns' per-dimension mean from both
+sides (`_centred`): distances do not change, |x|^2 falls, and with it the
+expansion's rounding. Deviation: the reference's diagonal carries the
+expansion's cancellation residual (its :178-184); here the kernel is told
+which rows are the columns' own (`diag_offset`: 0 for a square Gram, a row
+slab's first row for a slab of one) and sets r2 = 0 there, so K_ii is
+exactly v at every D.
 """
 from __future__ import annotations
 
@@ -53,9 +61,11 @@ matvec_launches = 0
 moments_launches = 0
 
 _TILE = 64
-_CHUNK = 16              # R columns per grid.y step (B5) / dims per step (B6)
+_CHUNK = 16              # dims per grid.y step (B6's chunk kernel)
 _MOM_STRIDE = _CHUNK + 1
 _MAX_GRID_Y = 65535
+_WIDE_COLS = 128         # R columns per grid.y step (B5's tensor-core kernel)
+_CENTRE_MIN_D = 9        # from here B5 forms r2 by the expansion (R <= 16)
 _MAX_MOMENTS = 128       # D + 1, the reference's lane limit
 _PLAIN_BLOCK_ENTRIES = 2**25
 _SQRT3 = math.sqrt(3.0)
@@ -68,7 +78,8 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("gram_matvec_fused")
         p = ctypes.c_void_p
-        lib.gram_matvec_fused_f32.argtypes = [p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [p]
+        lib.gram_matvec_fused_f32.argtypes = ([p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3
+                                              + [ctypes.c_int64, p])
         lib.gram_matvec_fused_f32.restype = ctypes.c_int
         lib.gram_moments_f32.argtypes = [p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [p]
         lib.gram_moments_f32.restype = ctypes.c_int
@@ -136,11 +147,24 @@ def _row_block(M):
     return max(1, _PLAIN_BLOCK_ENTRIES // max(M, 1))
 
 
-def stationary_gram_matvec_plain(Xs, X2s, V, v, family=0):
+def _r2_block(Xs, X2s, i, b, diag_offset):
+    """r2 of rows [i, i + b) of Xs against X2s, 0 where row r of Xs is row
+    r + diag_offset of X2s (diag_offset >= 0)."""
+    r2 = _direct_r2(Xs[i:i + b], X2s)
+    if diag_offset >= 0:
+        rows = torch.arange(i, min(i + b, Xs.shape[0]), device=Xs.device)
+        rows = rows[rows + diag_offset < X2s.shape[0]]
+        r2 = r2.index_put((rows - i, rows + diag_offset), r2.new_zeros(()))
+    return r2
+
+
+def stationary_gram_matvec_plain(Xs, X2s, V, v, family=0, diag_offset=-1):
     """K_family(Xs, X2s) @ V in torch ops on scaled inputs, in row blocks
-    of at most 2**25 Gram entries; differentiable by autograd."""
+    of at most 2**25 Gram entries; differentiable by autograd. r2 is 0 where
+    row r of Xs is row r + diag_offset of X2s (diag_offset >= 0), as the
+    kernel sets it."""
     b = _row_block(X2s.shape[0])
-    return torch.cat([_k_of_r2(family, _direct_r2(Xs[i:i + b], X2s), v) @ V
+    return torch.cat([_k_of_r2(family, _r2_block(Xs, X2s, i, b, diag_offset), v) @ V
                       for i in range(0, Xs.shape[0], b)], dim=0)
 
 
@@ -186,10 +210,12 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0):
+def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0, diag_offset=-1):
     """The B5 kernel on scaled float32 inputs: K_family(Xs, X2s) @ V, one
-    launch on the current stream. X2s and V are copied when their data is
-    not 16-byte aligned (the kernel copies their tiles 16 bytes at a time)."""
+    launch on the current stream. diag_offset >= 0: row r of Xs is row
+    r + diag_offset of X2s (0 for a square Gram), where r2 is 0 exactly; -1:
+    none. X2s and V are copied when their data is not 16-byte aligned (the
+    kernel copies their tiles 16 bytes at a time)."""
     global matvec_launches
     fn = "stationary_gram_matvec_cuda"
     _check(fn, [("Xs", Xs), ("X2s", X2s), ("V", V), ("v", v)], Xs)
@@ -204,8 +230,10 @@ def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0):
         raise ValueError(f"{fn}: unknown family {family!r}")
     N, D = Xs.shape
     M, R = V.shape
-    if -(-R // _CHUNK) > _MAX_GRID_Y or D >= 2**31:
+    if -(-R // _WIDE_COLS) > _MAX_GRID_Y or D >= 2**31:
         raise ValueError(f"{fn}: R={R} or D={D} is too large")
+    if diag_offset < -1:
+        raise ValueError(f"{fn}: diag_offset={diag_offset} is neither a row offset nor -1")
     out = torch.empty((N, R), dtype=torch.float32, device=Xs.device)
     if N == 0 or R == 0:
         return out
@@ -213,7 +241,8 @@ def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0):
     lib = _lib()
     with torch.cuda.device(Xs.device):
         rc = lib.gram_matvec_fused_f32(Xs.data_ptr(), X2s.data_ptr(), v.data_ptr(), V.data_ptr(),
-                                       out.data_ptr(), N, M, D, R, family, _stream(Xs))
+                                       out.data_ptr(), N, M, D, R, family, int(diag_offset),
+                                       _stream(Xs))
     if rc != 0:
         raise RuntimeError(f"gram_matvec_fused kernel launch failed: "
                            f"{lib.gram_matvec_fused_error_string(rc).decode()}")
@@ -260,11 +289,23 @@ def gram_moments_cuda(Xs, G, V, v, family=0):
     return out
 
 
-def _matvec(Xs, X2s, V, v, family):
+def _matvec(Xs, X2s, V, v, family, diag_offset):
     if Xs.device.type == "cpu":
-        return stationary_gram_matvec_plain(Xs, X2s, V, v, family)
+        return stationary_gram_matvec_plain(Xs, X2s, V, v, family, diag_offset)
     return stationary_gram_matvec_cuda(Xs.contiguous(), X2s.contiguous(), V.contiguous(),
-                                       v.contiguous(), family)
+                                       v.contiguous(), family, diag_offset)
+
+
+def _centred(Xs, X2s):
+    """Xs and X2s (the same tensor for a square Gram) less one per-dimension
+    mean, the columns': distances do not change, and for D >= _CENTRE_MIN_D,
+    where B5 forms r2 by the expansion, |x|^2 and the expansion's rounding
+    fall. Below it the inputs are returned as they are."""
+    if Xs.shape[1] < _CENTRE_MIN_D:
+        return Xs, X2s
+    mu = X2s.mean(dim=0)
+    Xc = Xs - mu
+    return Xc, (Xc if X2s is Xs else X2s - mu)
 
 
 def _moments(Xs, G, V, v, family):
@@ -281,25 +322,32 @@ def _as(x, like, dtype=None):
 
 
 def stationary_gram_matvec_fused(X, V, variance, lengthscale, family=0, noise=None,
-                                 X2=None, accum="exact"):
+                                 X2=None, accum="exact", diag_offset=None):
     """(K_family(scaled dist) + diag(noise)) @ V, fused (family: _FAMILIES).
 
     X: (N, D) rows of the product; X2: (M, D) columns (default X, the square
     Gram); V: (M, R) or (M,); lengthscale a scalar or (D,). With X2 given the
-    product is the rectangular slab K(X, X2) @ V, and `noise` is refused.
+    product is the rectangular slab K(X, X2) @ V, and `noise` is refused;
+    diag_offset = i0 says X is X2[i0:i0 + N] (a row slab of the square
+    Gram), whose diagonal entries then take r2 = 0 as the square Gram's do.
     Not differentiable (computed under no_grad): the differentiable form is
     stationary_gram_matvec_fused_diff.
     """
     _check_accum(accum)
     if X2 is not None and noise is not None:
         raise ValueError("noise diagonal undefined for rectangular slabs")
+    if X2 is None and diag_offset not in (None, 0):
+        raise ValueError("diag_offset of a square Gram is 0")
     with torch.no_grad():
         V2 = V if V.ndim == 2 else V[:, None]
         ls = _as(lengthscale, X)
-        Xs = (X / ls).to(torch.float32)
-        Xc = Xs if X2 is None else (X2 / ls).to(torch.float32)
+        Xs = X / ls
+        Xs, Xc = _centred(Xs, Xs if X2 is None else X2 / ls)
+        Xs = Xs.to(torch.float32)
+        Xc = Xs if X2 is None else Xc.to(torch.float32)
         v = _as(variance, X, torch.float32).reshape(1)
-        out = _matvec(Xs, Xc, V2.to(torch.float32), v, int(family))
+        diag = 0 if X2 is None else (-1 if diag_offset is None else int(diag_offset))
+        out = _matvec(Xs, Xc, V2.to(torch.float32), v, int(family), diag)
         if noise is not None:
             out = out + noise[:, None] * V2
         out = out.to(V2.dtype)
@@ -312,12 +360,13 @@ def rbf_gram_matvec_fused(X, V, variance, lengthscale, noise=None, accum="exact"
                                         noise=noise, accum=accum)
 
 
-def kern_gram_matvec_fused(kern, X, V, noise=None, X2=None, accum="exact"):
+def kern_gram_matvec_fused(kern, X, V, noise=None, X2=None, accum="exact", diag_offset=None):
     """Dispatch on a kernel object (must satisfy fused_available)."""
     fam = _FAMILIES[type(kern).__name__]
     return stationary_gram_matvec_fused(
         kern._slice(X), V, kern.variance.values, kern.lengthscale.values, family=fam,
-        noise=noise, X2=None if X2 is None else kern._slice(X2), accum=accum)
+        noise=noise, X2=None if X2 is None else kern._slice(X2), accum=accum,
+        diag_offset=diag_offset)
 
 
 class _FusedDiffFn(torch.autograd.Function):

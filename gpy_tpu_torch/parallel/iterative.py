@@ -30,9 +30,12 @@ LOG_2_PI = math.log(2 * math.pi)
 
 
 def _slab(kern, X, V, i0, i1, block, fused, fused_accum):
-    """K(X[i0:i1], X) @ V, the rank's rows of the product."""
+    """K(X[i0:i1], X) @ V, the rank's rows of the product. B5 is told that
+    row r of the slab is row i0 + r of X, so it sets r2 = 0 on the diagonal
+    as on the square Gram and the slab equals the serial product's rows."""
     if fused and fused_available(kern):
-        return kern_gram_matvec_fused(kern, X[i0:i1], V, X2=X, accum=fused_accum)
+        return kern_gram_matvec_fused(kern, X[i0:i1], V, X2=X, accum=fused_accum,
+                                      diag_offset=i0)
     return gram_matvec(kern, X[i0:i1], V, block=block, X2=X)
 
 

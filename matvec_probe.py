@@ -2,44 +2,54 @@
 """Probes the fused Gram-matvec kernel B5 and its gradient moments B6 on one CUDA card.
 
     python3 matvec_probe.py [--other LABEL=path/to/gram_matvec_fused.cu ...] [--phases]
-                            [--chunk-phases LABEL] [--no-times] [--only wide]
+                            [--no-times] [--only wide|cross]
                             [--predict-other LABEL=path/to/checkout ...]
+                            [--objective-other LABEL=path/to/checkout ...]
 
 Builds gpy_tpu_torch/csrc/gram_matvec_fused.cu and each --other source
-(another version with the same C interface, e.g. the parent commit's,
-unpacked with `git archive` into a git-ignored directory) into
-gpy_tpu_torch/_build/, all at once, then prints one JSON line each for:
+(another version, e.g. the parent commit's, unpacked with `git archive`
+into a git-ignored directory; a source whose C interface has no `diag`
+argument is called without it) into gpy_tpu_torch/_build/, all at once,
+then prints one JSON line each for:
   - ptxas' registers, shared memory and spills of every kernel instance;
   - the SASS of every B5 and B6 instance (cuobjdump): its instruction
     count, and the loops of the main path's instances (MAIN_PATH_SASS) by
     opcode (their listings go to chiprun_out/), with the tensor-core
-    instructions (HMMA, HGMMA) of B5's wide instance (R > 16) by their full
-    opcode;
+    instructions (HMMA, HGMMA) of B5's wide instance (R > 16) and of its
+    cross-term instance (8 < D <= 64, R <= 16) by their full opcode;
   - B5's wide kernel at chip_smoke.WIDE_SHAPES and at N=50,000, D=4 for R in
     WIDE_R against the plain twin, and a second launch at (4096, 4, 256)
     bit for bit against the first;
+  - B5's cross-term kernel at chip_smoke.CROSS_SHAPES for every family
+    within FUSED_FWD_TOL, and chip_smoke.check_cross (a second launch bit
+    for bit, K_ii exactly v, the sharded slab's rows bit for bit);
   - B6 of every version on N=50,000 inputs against the float64 plain twin
     (within chip_smoke.FUSED_BWD_TOL_50K), and this version's bit for bit
     against a second launch of itself;
-  - with --phases, copies of the source (PHASE_COPIES for B5,
-    MOMENTS_PHASE_COPIES for B6, WIDE_PHASE_COPIES for B5's wide kernel,
-    timed at R=256) join the --other
-    versions: phases deleted (results wrong, not checked), where a launch's
-    time goes, and design alternatives, what each element pays; with
-    --chunk-phases LABEL, CHUNK_PHASE_COPIES of the --other LABEL's source
-    (the parent's chunk kernel) join them too;
+  - with --phases, copies of the source (PHASE_COPIES for B5's
+    register-tile kernel, MOMENTS_PHASE_COPIES for B6, WIDE_PHASE_COPIES for
+    B5's wide kernel, timed at R=256, CROSS_PHASE_COPIES for its cross-term
+    kernel, timed at D=12, R=9) join the --other versions: phases deleted
+    or replaced (results wrong, not checked), where a launch's time goes,
+    and design alternatives, what each element pays;
   - unless --no-times, at chip_smoke.py's main-path shape (N=50,000, D=4,
     RBF) for R = 1, 9 and 16 and B5's wide R = 17, 64, 256 and 1024: the
     profiler's device time per launch of every version's B5 and B6 (B6's
     reduce beside it; B6 at R = 1, 9, 16), in turns (others, this, this,
     others reversed); each version's error against the plain twin (B6: the
-    float64 one); the bounds. Then this version's chunk kernels (CHUNK_TIMES:
-    B5 at D = 12, B6 at D = 12 and at R = 17) by device time, with bounds;
-    --only wide takes WIDE_PHASE_COPIES alone in place of --phases' copies
-    and times B5's wide kernel only;
+    float64 one); the bounds. B5 at D > 8 (CROSS_D by TIME_R: this
+    version's cross-term kernel, a parent's chunk kernel) the same way, on
+    centred inputs (as the wrapper centres them) with the cross-term
+    bounds. Then B6's chunk kernel (CHUNK_TIMES: D = 12, and R = 17) by
+    device time, with bounds; --only wide times B5's wide kernel alone
+    with WIDE_PHASE_COPIES, --only cross B5 at D > 8 alone with
+    CROSS_PHASE_COPIES;
   - with --predict-other, the fused N=50,000 model's predict at 256 points
     (48 CG launches of B5 at R = 256) by host time, in a fresh process on
-    each checkout in turns (others, this, this, others reversed).
+    each checkout in turns (others, this, this, others reversed);
+  - with --objective-other, the fused N=50,000, D=12 model's NLML+gradient
+    (chip_smoke's iterative_d12 model: 49 B5 launches at R = 9 and one B6)
+    by host time, in a fresh process on each checkout in turns.
 Exits non-zero on a failed check or without a CUDA device.
 """
 from __future__ import annotations
@@ -60,32 +70,31 @@ from chol_probe import OUT_DIR, build_other, phase_copies, ptxas_lines, sass
 NAME = "gram_matvec_fused"
 TIME_R = (1, 9, 16)
 WIDE_R = (17, 64, 256, 1024)
+CROSS_D = (9, 12, 20, 32)
 # mangled-name fragments of the main path's instances (family RBF): B5's
-# chunk kernel at R = 9 (a parent's main path), its register-tile kernel at
-# R = 9, 1, 16, its wide kernel (R > 16, D <= 4: a predict's CG) and the
-# parent's; B6's chunk kernel (the same), its register-tile kernel at R = 9,
-# 1, 16
-MAIN_PATH_SASS = ("gram_matvec_kernelILi0ELi9EE", s.MAIN_B5_INSTANCE,
+# register-tile kernel at R = 9, 1, 16, its wide kernel (R > 16, D <= 4: a
+# predict's CG) and the parent's, its cross-term kernel at R = 9 (D > 8: the
+# D=12 path's CG) and the chunk kernel it replaced; B6's chunk kernel (the
+# D=12 path's B6), its register-tile kernel at R = 9, 1, 16
+MAIN_PATH_SASS = (s.MAIN_B5_INSTANCE,
                   "gram_matvec_tile_kernelILi0ELi1ELi4E", "gram_matvec_tile_kernelILi0ELi16ELi4E",
                   s.WIDE_B5_INSTANCE, "gram_matvec_wide_kernelILi0EE",
+                  s.CROSS_B5_INSTANCE, "gram_matvec_kernelILi0ELi9EE",
                   "gram_moments_kernelILi0EE", s.MAIN_B6_INSTANCE,
                   "gram_moments_tile_kernelILi0ELi1ELi4E", "gram_moments_tile_kernelILi0ELi16ELi4E")
-# the chunk kernels' shapes at N=50,000 (kernel, D, R): B5's at D > 8, B6's
-# at D > 8 and at R > 16; none is on a main path
-CHUNK_TIMES = (("gram_matvec", 12, 9), ("gram_moments", 12, 9), ("gram_moments", 4, 17))
+# B6's chunk kernel at N=50,000 (D, R): at D > 8 (the D=12 path's one
+# launch an NLML+gradient) and at R > 16
+CHUNK_TIMES = ((12, 9), (4, 17))
 # the profiler's names of B6's kernel at D=4: the register-tile kernel, or
-# the chunk kernel of a source that has none (the parent's)
-B6_TILE, B6_CHUNK = s.B6_KERNEL, "gram_moments_kernel<"
+# the chunk kernel of a source that has none
+B6_TILE, B6_CHUNK = s.B6_KERNEL, s.B6_CHUNK_KERNEL
 
-# Copies of the checkout's source that cut B5. Phases deleted (results
-# wrong, not checked): K left as r2 (no exponential), K summed into one
-# accumulator (no contraction with V), the column tiles' staging only (no K, no
-# contraction). Design alternatives (results right): exp2f in place of
-# ex2.approx, each thread waiting for its next tile's copies before it
-# computes (no overlap). PHASE_COPIES cut the register-tile kernel
-# (--phases); CHUNK_PHASE_COPIES cut the chunk kernel `gram_matvec_kernel`,
-# the parent's main-path kernel and today's D > 8 path (--chunk-phases
-# LABEL: copies of the --other LABEL's source).
+# Copies of the checkout's source that cut B5's register-tile kernel
+# (--phases). Phases deleted (results wrong, not checked): K left as r2 (no
+# exponential), K summed into one accumulator (no contraction with V), the
+# column tiles' staging only (no K, no contraction). Design alternatives
+# (results right): exp2f in place of ex2.approx, each thread waiting for
+# its next tile's copies before it computes (no overlap).
 _NO_EXP = ("k[q] = k_of_r2_fast<FAM>(r2, vv);", "k[q] = r2;")
 _CONTRACTION = "    for (int c = 0; c < RC; ++c) {\n      acc[c] = fmaf(k[0], va[c], acc[c]);"
 _NO_CONTRACTION = (_CONTRACTION, "    acc[0] += (k[0] + k[1]) + (k[2] + k[3]);\n"
@@ -93,8 +102,8 @@ _NO_CONTRACTION = (_CONTRACTION, "    acc[0] += (k[0] + k[1]) + (k[2] + k[3]);\n
 _LOAD_ONLY = ("for (int s = 0; s < kSteps; ++s) {", "for (int s = 0; s < 0; ++s) {")
 _EXP2F = ("__device__ __forceinline__ float ex2_approx(float x) {\n  float y;",
           "__device__ __forceinline__ float ex2_approx(float x) {\n  return exp2f(x);\n  float y;")
-_NO_PREFETCH = ("if (tile + 2 < tiles) issue(tile + 2);",
-                "if (tile + 2 < tiles) issue(tile + 2);\n    copy_async_wait();")
+_NO_PREFETCH = ("if (tile + 2 < tiles) issue(tile + 2);\n    const float4* xt",
+                "if (tile + 2 < tiles) issue(tile + 2);\n    copy_async_wait();\n    const float4* xt")
 PHASE_COPIES = {
     "no_exp": [_NO_EXP],
     "no_contraction": [_NO_CONTRACTION],
@@ -102,18 +111,69 @@ PHASE_COPIES = {
     "exp2f": [_EXP2F],
     "no_prefetch": [_NO_PREFETCH],
 }
-_CHUNK_NO_EXP = ("kv[a][b] = col_ok ? k_of_r2<FAM>(kv[a][b], vv) : 0.0f;",
-                 "kv[a][b] = col_ok ? kv[a][b] : 0.0f;")
-_CHUNK_NO_CONTRACTION = ("for (int a = 0; a < kPer; ++a) acc[a][c] = fmaf(kv[a][b], vb, acc[a][c]);",
-                         "for (int a = 0; a < kPer; ++a) if (c == 0) acc[a][c] += kv[a][b];")
-_CHUNK_R2 = ("      __syncthreads();\n      const int kn = min(kChunk, d - d0);\n"
-             "      for (int k = 0; k < kn; ++k) {\n        float xa[kPer], xb[kPer];")
-_CHUNK_NO_R2 = ("        }\n      }\n" + _CHUNK_R2,
-                "        }\n      }\n" + _CHUNK_R2.replace("min(kChunk, d - d0)", "0"))
-CHUNK_PHASE_COPIES = {
-    "chunk_no_exp": [_CHUNK_NO_EXP],
-    "chunk_no_contraction": [_CHUNK_NO_CONTRACTION],
-    "chunk_load_only": [_CHUNK_NO_EXP, _CHUNK_NO_CONTRACTION, _CHUNK_NO_R2],
+# Copies that cut B5's cross-term kernel (--phases or --only cross; timed at
+# D=12, R=9). cross_simt_r2: the cross term's mma.sync replaced by SIMT
+# direct differences of the rows' and columns' coordinates read through L1
+# (the tensor-core kernel's D > 8 form), in the same walk (results right
+# but for the diagonal's r2 = 0; not checked); cross_no_exp: K left as -r2'
+# (no exponential); cross_no_contraction: K summed into one accumulator (no
+# contraction with V); cross_no_mma: the accumulators left at -(|x'|^2 +
+# |y'|^2) (no tensor-core cross term); cross_no_relayout: each tile's B
+# fragments, norms and V rows never re-laid (the first tile's read again).
+_CROSS_MMA = """      for (int ks = 0; ks < ks_n; ++ks) {
+        float4 ah[MB], al[MB];
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          ah[mb] = *reinterpret_cast<const float4*>(at + (mb * ks_n + ks) * 256);
+          al[mb] = *reinterpret_cast<const float4*>(at + (mb * ks_n + ks) * 256 + 128);
+        }
+#pragma unroll
+        for (int s = 0; s < kCrossPass; ++s) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(bt + ((p * kCrossPass + s) * ks_n + ks) * 128);
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb) {
+            mma_tf32(c[mb][s], al[mb], b.x, b.y);
+            mma_tf32(c[mb][s], ah[mb], b.z, b.w);
+            mma_tf32(c[mb][s], ah[mb], b.x, b.y);
+          }
+        }
+      }
+"""
+_CROSS_SIMT = """#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int s = 0; s < kCrossPass; ++s) {
+        const int64_t ia = wrow + mb * 16 + lane / 4, ib = ia + 8;
+        const int64_t ja = col0 + (p * kCrossPass + s) * 8 + 2 * t;
+        const float* pa = xs + (ia < n ? ia : n - 1) * d;
+        const float* pb = xs + (ib < n ? ib : n - 1) * d;
+        const float* qa = x2s + (ja < m ? ja : m - 1) * d;
+        const float* qb = x2s + (ja + 1 < m ? ja + 1 : m - 1) * d;
+        float r2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int e = 0; e < d; ++e) {
+          const float xa = __ldg(pa + e), xb = __ldg(pb + e);
+          const float ya = __ldg(qa + e), yb = __ldg(qb + e);
+          const float d0 = xa - ya, d1 = xa - yb, d2 = xb - ya, d3 = xb - yb;
+          r2[0] = fmaf(d0, d0, r2[0]);
+          r2[1] = fmaf(d1, d1, r2[1]);
+          r2[2] = fmaf(d2, d2, r2[2]);
+          r2[3] = fmaf(d3, d3, r2[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[mb][s][q] = -r2[q] * (scale * scale);
+      }
+"""
+_CROSS_K = "k[mb][q] = k_of_r2_fast<FAM>(fmaxf(-c[mb][s][q], 0.0f), vv);"
+_CROSS_V = "const float* va = vt + ((p * kCrossPass + s) * 8 + 2 * t) * kStride;  // V row 2t"
+_CROSS_RELAYOUT = "    if (tile + 1 < tiles) relayout(cur ^ 1, valid(tile + 1));\n"
+CROSS_PHASE_COPIES = {
+    "cross_simt_r2": [(_CROSS_MMA, _CROSS_SIMT)],
+    "cross_no_mma": [(_CROSS_MMA, "")],
+    "cross_no_relayout": [(_CROSS_RELAYOUT, "")],
+    "cross_no_exp": [(_CROSS_K, "k[mb][q] = -c[mb][s][q];")],
+    "cross_no_contraction": [(_CROSS_V, "acc[0][0] += (k[0][0] + k[0][1]) + (k[MB - 1][2] + k[MB - 1][3]);"
+                                        "\n        continue;\n        " + _CROSS_V)],
 }
 # Copies that cut B6's register-tile kernel (--phases; results wrong, not
 # checked): the weights left as w r2' and w (no exponential), W' from one
@@ -150,13 +210,16 @@ WIDE_PHASE_COPIES = {
 }
 
 
-def launchers(so, label):
-    """B5 and B6 of a build, through its C interface."""
+def launchers(so, label, diag_abi):
+    """B5 and B6 of a build, through its C interface; `diag_abi`: B5 takes
+    the diagonal's row offset (0 here: every probe product is square)."""
     import torch
 
     lib = ctypes.CDLL(so)
     p = ctypes.c_void_p
-    lib.gram_matvec_fused_f32.argtypes = [p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [p]
+    extra = [ctypes.c_int64] if diag_abi else []
+    lib.gram_matvec_fused_f32.argtypes = ([p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3
+                                          + extra + [p])
     lib.gram_matvec_fused_f32.restype = ctypes.c_int
     lib.gram_moments_f32.argtypes = [p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [p]
     lib.gram_moments_f32.restype = ctypes.c_int
@@ -165,7 +228,8 @@ def launchers(so, label):
         out = torch.empty((Xs.shape[0], V.shape[1]), dtype=torch.float32, device=Xs.device)
         rc = lib.gram_matvec_fused_f32(Xs.data_ptr(), Xs.data_ptr(), v.data_ptr(), V.data_ptr(),
                                        out.data_ptr(), Xs.shape[0], Xs.shape[0], Xs.shape[1],
-                                       V.shape[1], 0, torch.cuda.current_stream().cuda_stream)
+                                       V.shape[1], 0, *([0] if diag_abi else []),
+                                       torch.cuda.current_stream().cuda_stream)
         s.check(rc == 0, f"{label} gram_matvec_fused launch failed: {rc}")
         return out
 
@@ -182,15 +246,22 @@ def launchers(so, label):
     return matvec, moments
 
 
-def tensor_core_ops(label):
-    """The tensor-core instructions (HMMA, HGMMA) of B5's wide instance in a
-    version's SASS listing, by full opcode: the contraction's route."""
+def has_diag_abi(src):
+    """Whether a source's B5 entry point takes the diagonal's row offset."""
+    text = open(src).read()
+    return "int r, int family, int64_t diag, void* stream" in text
+
+
+def tensor_core_ops(label, instance):
+    """The tensor-core instructions (HMMA, HGMMA) of a B5 instance in a
+    version's SASS listing, by full opcode: the route of its cross term or
+    contraction."""
     path = os.path.join(OUT_DIR, f"sass_matvec_{label}.txt")
     if not os.path.exists(path):
         return {}
     parts = re.split(r"(?=\n\s*Function : )", open(path).read())
     body = "".join(p for p in parts if "Function : " in p
-                   and s.WIDE_B5_INSTANCE in p.split("Function : ", 1)[1].split("\n", 1)[0])
+                   and instance in p.split("Function : ", 1)[1].split("\n", 1)[0])
     return dict(Counter(re.findall(r"\b(HG?MMA[A-Z0-9_.]*)", body)))
 
 
@@ -290,29 +361,68 @@ def wide_checks(fm):
             "rel_err_50k_by_R": errs}
 
 
-def chunk_times(fm):
-    """This version's chunk kernels (CHUNK_TIMES) at N=50,000 by device time
-    per launch, with their bounds: none of them is on a main path."""
+def cross_checks(fm):
+    """This version's B5 cross-term kernel (8 < D <= 64, R <= 16) through
+    the public wrapper: chip_smoke's CROSS_SHAPES for every family within
+    FUSED_FWD_TOL, and chip_smoke.check_cross."""
+    fwd = [{"family": fname, "shape": shape[0],
+            "rel_err": s.check_fused_matvec(fm, fam, "exact", shape)[0]}
+           for fname, fam in s.FAMILIES.items() for shape in s.CROSS_SHAPES]
+    return {"fwd": fwd, "max_rel_err": max(r["rel_err"] for r in fwd),
+            "fwd_tol": s.FUSED_FWD_TOL, **s.check_cross(fm)}
+
+
+def cross_times(versions, fm, ds, rs):
+    """Each version's B5 device time per launch at N=50,000 and D > 8 (this
+    version's cross-term kernel; a parent's chunk kernel), in turns, on
+    inputs centred as the wrapper centres them, with its error against the
+    plain twin and both bounds (chip_smoke.cross_matvec_bounds)."""
     import torch
 
     rows = []
-    for kind, D, R in CHUNK_TIMES:
+    for D in ds:
+        for R in rs:
+            X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, D, R, seed=11)
+            Xs = fm._centred(X / ls, X / ls)[0].contiguous()
+            v1 = v.reshape(1)
+            ref = fm.stationary_gram_matvec_plain(Xs, Xs, V, v1, 0, 0)
+            scale = float(ref.abs().max())
+            err = {}
+            for label, fn in versions:
+                out = fn(Xs, V, v1)
+                torch.cuda.synchronize()
+                err[label] = float((out - ref).abs().max()) / scale
+            tol = s.FUSED_FWD_TOL_50K[R]
+            if "this" in err:
+                s.check(err["this"] <= tol, f"cross kernel D={D} R={R}: rel err {err['this']} > {tol}")
+            got = {label: [] for label, _ in versions}
+            for label, fn in versions + versions[::-1]:
+                got[label].append(s.device_ms(lambda: fn(Xs, V, v1), reps=5, warmup=1,
+                                              kernel="gram_matvec")[0])
+            rows.append({"N": s.ITER_N, "D": D, "R": R, "device_ms": got,
+                         "rel_err_vs_plain": err, **s.cross_matvec_bounds(s.ITER_N, s.ITER_N, D, R)})
+            s.emit({"phase": "cross_times_row", **rows[-1]})
+            del X, V, Xs, ref
+            torch.cuda.empty_cache()
+    return rows
+
+
+def chunk_times(fm):
+    """This version's B6 chunk kernel (CHUNK_TIMES) at N=50,000 by device
+    time per launch, with its bound and its reduce's time."""
+    import torch
+
+    rows = []
+    for D, R in CHUNK_TIMES:
         X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, D, R, seed=11)
         Xs = (X / ls).contiguous()
         v1 = v.reshape(1)
-        if kind == "gram_matvec":
-            ms, _, _, _ = s.device_ms(lambda: fm.stationary_gram_matvec_cuda(Xs, Xs, V, v1, 0),
-                                      reps=5, warmup=1, kernel="gram_matvec_kernel<")
-            row = {"kernel": "B5 chunk (gram_matvec_kernel)", "ms": ms,
-                   **s.fused_matvec_bounds(s.ITER_N, s.ITER_N, D, R)}
-        else:
-            _, _, G, _, _ = s.fused_inputs(s.ITER_N, None, D, R, seed=13)
-            ms, reduce_ms, _, _ = s.device_ms(lambda: fm.gram_moments_cuda(Xs, G, V, v1, 0),
-                                              reps=5, warmup=1, kernel="gram_moments_kernel<")
-            bound_ms, bound_by = s.gram_moments_bound(s.ITER_N, D, R)
-            row = {"kernel": "B6 chunk (gram_moments_kernel)", "ms": ms, "reduce_ms": reduce_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-        rows.append({"N": s.ITER_N, "D": D, "R": R, **row})
+        _, _, G, _, _ = s.fused_inputs(s.ITER_N, None, D, R, seed=13)
+        ms, reduce_ms, _, _ = s.device_ms(lambda: fm.gram_moments_cuda(Xs, G, V, v1, 0),
+                                          reps=5, warmup=1, kernel=B6_CHUNK)
+        bound_ms, bound_by = s.gram_moments_bound(s.ITER_N, D, R)
+        rows.append({"N": s.ITER_N, "D": D, "R": R, "kernel": "B6 chunk (gram_moments_kernel)",
+                     "ms": ms, "reduce_ms": reduce_ms, "bound_ms": bound_ms, "bound_by": bound_by})
         s.emit({"phase": "chunk_times_row", **rows[-1]})
         torch.cuda.empty_cache()
     return rows
@@ -332,18 +442,60 @@ print(json.dumps({"predict_ms": ms}))
 """
 
 
+# run in a fresh process on a checkout (only the package's public API, which
+# a parent has too): chip_smoke.run_iterative_d12's fused model and data
+# (d12_data, d12_model), its NLML+gradient at the start
+OBJECTIVE_CODE = """
+import json
+import numpy as np, torch
+import chip_smoke as s
+from gpy_tpu_torch.inference import IterativeGaussianInference
+from gpy_tpu_torch.kern import RBF
+from gpy_tpu_torch.models import GPRegression
+rng = np.random.default_rng(0)
+X = rng.random((50000, 12)).astype(np.float32) * 10.0
+Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((50000, 1))).astype(np.float32)
+m = GPRegression(X, Y, RBF(12, ARD=True, lengthscale=3.0, device="cuda", dtype=torch.float32),
+                 noise_var=0.1, inference_method=IterativeGaussianInference(
+                     max_cg=48, n_probes=8, block=2048, materialize=False, fused=True),
+                 device="cuda", dtype=torch.float32)
+x = m.optimizer_array
+f, _ = m._objective_and_grad(x)
+ms = s.host_ms(lambda: m._objective_and_grad(x), reps=3, warmup=1)
+print(json.dumps({"objective_and_grad_ms": ms, "nlml": float(f)}))
+"""
+
+
+def checkout_times(roots, code, key):
+    """`key` of the JSON line that `code` prints, run in a fresh process on
+    each checkout in `roots` (label -> directory), in turns (roots, then
+    reversed); a reading per run, and each run's last line."""
+    order = list(roots) + list(roots)[::-1]
+    got = {label: [] for label in roots}
+    last = {label: [] for label in roots}
+    for label in order:
+        r = subprocess.run([sys.executable, "-c", code], cwd=roots[label],
+                           capture_output=True, text=True, timeout=900)
+        s.check(r.returncode == 0, f"{key} on {label} failed:\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        got[label].append(line[key])
+        last[label].append(line)
+    return {key: got, "runs": last, "order": order}
+
+
 def predict_times(roots):
     """The fused model's predict ms at 256 points on each checkout in
     `roots` (label -> directory), each in a fresh process, in turns."""
-    order = list(roots) + list(roots)[::-1]
-    got = {label: [] for label in roots}
-    for label in order:
-        r = subprocess.run([sys.executable, "-c", PREDICT_CODE], cwd=roots[label],
-                           capture_output=True, text=True, timeout=900)
-        s.check(r.returncode == 0, f"predict on {label} failed:\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
-        got[label].append(json.loads(r.stdout.strip().splitlines()[-1])["predict_ms"])
     return {"N": s.ITER_N, "n_pred": s.ITER_PRED, "max_cg": s.ITER_OPTS["max_cg"],
-            "predict_ms": got, "order": order}
+            **checkout_times(roots, PREDICT_CODE, "predict_ms")}
+
+
+def objective_times(roots):
+    """The fused D=12 model's NLML+gradient ms on each checkout in `roots`,
+    each in a fresh process, in turns."""
+    return {"N": s.ITER_N, "D": s.D12, "max_cg": s.ITER_OPTS["max_cg"],
+            "n_probes": s.ITER_OPTS["n_probes"],
+            **checkout_times(roots, OBJECTIVE_CODE, "objective_and_grad_ms")}
 
 
 def moments_times(fns, names, fm):
@@ -383,15 +535,17 @@ def main() -> int:
     ap.add_argument("--other", action="append", default=[], metavar="LABEL=PATH",
                     help="another gram_matvec_fused.cu")
     ap.add_argument("--phases", action="store_true",
-                    help="also time PHASE_COPIES of the checkout's source")
-    ap.add_argument("--chunk-phases", metavar="LABEL",
-                    help="also time CHUNK_PHASE_COPIES of the --other LABEL's source")
+                    help="also time PHASE_COPIES (and B6's, the wide and the cross-term "
+                         "kernel's) of the checkout's source")
     ap.add_argument("--no-times", action="store_true",
                     help="build, report and check only")
-    ap.add_argument("--only", choices=["wide"],
-                    help="wide: time B5's wide kernel and its WIDE_PHASE_COPIES only")
+    ap.add_argument("--only", choices=["wide", "cross"],
+                    help="time B5's wide kernel (with WIDE_PHASE_COPIES) or its cross-term "
+                         "kernel (with CROSS_PHASE_COPIES) only")
     ap.add_argument("--predict-other", action="append", default=[], metavar="LABEL=DIR",
                     help="another checkout to time the fused model's predict on")
+    ap.add_argument("--objective-other", action="append", default=[], metavar="LABEL=DIR",
+                    help="another checkout to time the fused D=12 model's NLML+gradient on")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("matvec_probe: torch sees no CUDA device", file=sys.stderr)
@@ -402,22 +556,18 @@ def main() -> int:
     smi = s.nvidia_smi_line()
     s.emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda})
+    src = os.path.join(_build.CSRC_DIR, NAME + ".cu")
     others = [o.split("=", 1) for o in args.other]
-    if args.chunk_phases:
-        others += phase_copies(dict(others)[args.chunk_phases],
-                               os.path.join(_build.BUILD_DIR, "matvec_chunk_phases"),
-                               CHUNK_PHASE_COPIES)
-    if args.phases:
-        others += phase_copies(os.path.join(_build.CSRC_DIR, NAME + ".cu"),
-                               os.path.join(_build.BUILD_DIR, "matvec_phases"),
-                               {**PHASE_COPIES, **MOMENTS_PHASE_COPIES, **WIDE_PHASE_COPIES})
-    elif args.only == "wide":
-        others += phase_copies(os.path.join(_build.CSRC_DIR, NAME + ".cu"),
-                               os.path.join(_build.BUILD_DIR, "matvec_phases"), WIDE_PHASE_COPIES)
+    copies = ({**PHASE_COPIES, **MOMENTS_PHASE_COPIES, **WIDE_PHASE_COPIES, **CROSS_PHASE_COPIES}
+              if args.phases else {"wide": WIDE_PHASE_COPIES, "cross": CROSS_PHASE_COPIES,
+                                   None: {}}[args.only])
+    if copies:
+        others += phase_copies(src, os.path.join(_build.BUILD_DIR, "matvec_phases"), copies)
+    sources = {**dict(others), "this": src}
     with ThreadPoolExecutor(max_workers=1 + len(others)) as ex:
         this = ex.submit(_build.build, NAME)
-        futures = {label: ex.submit(build_other, _build, label, src, NAME)
-                   for label, src in others}
+        futures = {label: ex.submit(build_other, _build, label, path, NAME)
+                   for label, path in others}
         builds = {**{label: f.result() for label, f in futures.items()},
                   "this": (os.path.join(_build.BUILD_DIR, f"lib{NAME}.so"), this.result())}
     for label, (path, report) in builds.items():
@@ -427,36 +577,52 @@ def main() -> int:
             kernels = {k: (v if any(m in k for m in MAIN_PATH_SASS)
                            else {"instructions": v["instructions"]})
                        for k, v in kernels.items()
-                       if re.search(r"\dgram_(matvec_(tile_|wide_|tc_)?|moments_(tile_)?)kernelI", k)}
+                       if re.search(r"\dgram_(matvec_(tile_|wide_|tc_|cross_)?|moments_(tile_)?)"
+                                    r"kernelI", k)}
         s.emit({"phase": "sass", "version": label, "kernels": kernels,
-                "wide_tensor_core_ops": tensor_core_ops(label)})
+                "wide_tensor_core_ops": tensor_core_ops(label, s.WIDE_B5_INSTANCE),
+                "cross_tensor_core_ops": tensor_core_ops(label, s.CROSS_B5_INSTANCE)})
 
-    fns = {label: launchers(path, label) for label, (path, _) in builds.items()}
-    b5_only = set(PHASE_COPIES) | set(CHUNK_PHASE_COPIES) | set(WIDE_PHASE_COPIES)
+    fns = {label: launchers(path, label, has_diag_abi(sources[label]))
+           for label, (path, _) in builds.items()}
+    b5_only = set(PHASE_COPIES) | set(WIDE_PHASE_COPIES) | set(CROSS_PHASE_COPIES)
     b6 = {label: f[1] for label, f in fns.items() if label not in b5_only}
     s.emit({"phase": "gram_moments_check", **check_moments(b6, fm, set(MOMENTS_PHASE_COPIES))})
     s.emit({"phase": "wide_checks", **wide_checks(fm)})
+    s.emit({"phase": "cross_checks", **cross_checks(fm)})
     if not args.no_times:
-        versions = [(label, f[0]) for label, f in fns.items()
-                    if label not in MOMENTS_PHASE_COPIES and label not in WIDE_PHASE_COPIES]
-        if args.only != "wide":
-            s.emit({"phase": "times", "nvidia_smi": smi, "rows": times(versions, fm, TIME_R)})
-        wide = [(label, fn) for label, fn in versions if label not in b5_only]
-        s.emit({"phase": "wide_times", "nvidia_smi": smi, "rows": times(wide, fm, WIDE_R)})
-        cuts = [(label, f[0]) for label, f in fns.items() if label in WIDE_PHASE_COPIES]
-        if cuts:
-            s.emit({"phase": "wide_phase_times", "nvidia_smi": smi,
-                    "rows": times([("this", fns["this"][0])] + cuts, fm, (256,))})
-    if not args.no_times and args.only != "wide":
-        s.emit({"phase": "chunk_times", "nvidia_smi": smi, "rows": chunk_times(fm)})
-        names = {label: B6_TILE if "gram_moments_tile_kernel" in builds[label][1] else B6_CHUNK
-                 for label in b6}
-        s.emit({"phase": "moments_times", "nvidia_smi": smi,
-                "rows": moments_times(b6, names, fm)})
+        versions = [(label, f[0]) for label, f in fns.items() if label not in MOMENTS_PHASE_COPIES]
+        full = [(label, fn) for label, fn in versions if label not in b5_only]
+        if args.only is None:
+            s.emit({"phase": "times", "nvidia_smi": smi,
+                    "rows": times([(label, fn) for label, fn in versions
+                                   if label in PHASE_COPIES or label not in b5_only], fm, TIME_R)})
+        if args.only in (None, "wide"):
+            s.emit({"phase": "wide_times", "nvidia_smi": smi, "rows": times(full, fm, WIDE_R)})
+            cuts = [(label, f[0]) for label, f in fns.items() if label in WIDE_PHASE_COPIES]
+            if cuts:
+                s.emit({"phase": "wide_phase_times", "nvidia_smi": smi,
+                        "rows": times([("this", fns["this"][0])] + cuts, fm, (256,))})
+        if args.only in (None, "cross"):
+            s.emit({"phase": "cross_times", "nvidia_smi": smi,
+                    "rows": cross_times(full, fm, CROSS_D, TIME_R)})
+            cuts = [(label, f[0]) for label, f in fns.items() if label in CROSS_PHASE_COPIES]
+            if cuts:
+                s.emit({"phase": "cross_phase_times", "nvidia_smi": smi,
+                        "rows": cross_times([("this", fns["this"][0])] + cuts, fm, (12,), (9,))})
+        if args.only is None:
+            s.emit({"phase": "chunk_times", "nvidia_smi": smi, "rows": chunk_times(fm)})
+            names = {label: B6_TILE if "gram_moments_tile_kernel" in builds[label][1] else B6_CHUNK
+                     for label in b6}
+            s.emit({"phase": "moments_times", "nvidia_smi": smi,
+                    "rows": moments_times(b6, names, fm)})
+    here = os.path.dirname(os.path.abspath(__file__))
     if args.predict_other:
-        roots = {**dict(o.split("=", 1) for o in args.predict_other),
-                 "this": os.path.dirname(os.path.abspath(__file__))}
+        roots = {**dict(o.split("=", 1) for o in args.predict_other), "this": here}
         s.emit({"phase": "predict_times", "nvidia_smi": smi, **predict_times(roots)})
+    if args.objective_other:
+        roots = {**dict(o.split("=", 1) for o in args.objective_other), "this": here}
+        s.emit({"phase": "objective_times", "nvidia_smi": smi, **objective_times(roots)})
     print(smi, flush=True)
     return 0
 

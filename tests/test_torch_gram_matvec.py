@@ -134,8 +134,9 @@ def test_fused_twin_matches_pallas_kernel(name, accum):
 
 @pytest.mark.parametrize("name", list(FAMILY))
 def test_fused_twin_matches_pallas_kernel_wide_inputs(name):
-    """D = 12: the reference forms r2 by the expansion above D = 8, the port
-    by direct differences; they agree to float32 rounding of |x|^2."""
+    """D = 12: the reference forms r2 by the expansion above D = 8, the
+    port's twin by direct differences on centred inputs; they agree to
+    float32 rounding of |x|^2."""
     X, _, V, ls = _fused_inputs(520, 12, 9, seed=30 + FAMILY[name])
     kw = dict(family=FAMILY[name], accum="exact")
     ref = np.asarray(jpgm.stationary_gram_matvec_fused(
@@ -165,6 +166,82 @@ def test_fused_twin_ragged_vector():
     got = tf.rbf_gram_matvec_fused(_t(X), _t(v), 1.0, 0.7)
     assert got.shape == (700,)
     assert _rel(got.numpy(), ref) < ACCUM_TOL["exact"]
+
+
+def test_centring_leaves_the_plain_product():
+    """Above D = 8 the wrapper subtracts the columns' mean from both sides
+    (where the kernel forms r2 by the expansion): in float64 the plain
+    product on centred inputs is the uncentred one to 1e-12, far from the
+    origin too; a square Gram's two sides stay one tensor; below D = 9 the
+    inputs pass unchanged."""
+    g = np.random.default_rng(21)
+    Xs = torch.tensor(g.random((300, 12)) * 4.0 + 50.0)
+    X2s = torch.tensor(g.random((250, 12)) * 4.0 + 50.0)
+    V = torch.tensor(g.standard_normal((250, 9)))
+    v = torch.tensor([1.3], dtype=torch.float64)
+    Xc, X2c = tf._centred(Xs, X2s)
+    assert float(X2c.mean(0).abs().max()) < 1e-12 and float(X2c.abs().max()) < 4.0
+    for fam in FAMILY.values():
+        ref = tf.stationary_gram_matvec_plain(Xs, X2s, V, v, fam)
+        got = tf.stationary_gram_matvec_plain(Xc, X2c, V, v, fam)
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-12
+    Xq, Xr = tf._centred(Xs, Xs)
+    assert Xq is Xr
+    X8 = Xs[:, :8]
+    assert all(a is X8 for a in tf._centred(X8, X8))
+
+
+def test_wrapper_centres_wide_inputs_on_the_cpu():
+    """The wrapper's CPU path at D = 12 computes the plain twin on the
+    centred float32 inputs, square and rectangular, and agrees with the
+    uncentred product to float32 rounding."""
+    X, _, V, ls = _fused_inputs(300, 12, 9, seed=22)
+    _, X2, V2, _ = _fused_inputs(300, 12, 9, seed=25, M=280)
+    X, X2 = X.astype(np.float64) + 20.0, X2.astype(np.float64) + 20.0
+    got = tf.stationary_gram_matvec_fused(_t(X), _t(V), 0.8, _t(ls))
+    Xs = _t(X) / _t(ls)
+    Xc = (Xs - Xs.mean(0)).to(torch.float32)
+    v = torch.tensor([0.8], dtype=torch.float32)
+    assert torch.equal(got, tf.stationary_gram_matvec_plain(Xc, Xc, _t(V), v, 0, 0))
+    plain = tf.stationary_gram_matvec_plain(Xs, Xs, _t(V).double(), v.double(), 0)
+    assert _rel(got.double().numpy(), plain.numpy()) < 1e-5
+    got = tf.stationary_gram_matvec_fused(_t(X), _t(V2), 0.8, _t(ls), X2=_t(X2))
+    X2s = _t(X2) / _t(ls)
+    mu = X2s.mean(0)
+    ref = tf.stationary_gram_matvec_plain((Xs - mu).to(torch.float32),
+                                          (X2s - mu).to(torch.float32), _t(V2), v, 0)
+    assert torch.equal(got, ref)
+
+
+def test_diag_offset_sets_the_diagonal_exactly():
+    """diag_offset = i0 says the rows are X2's rows i0.. (a row slab of the
+    square Gram): the plain twin sets r2 = 0 there, as the kernel does, so
+    K_ii is exactly v even where the rows differ a little from the columns;
+    elsewhere nothing changes. A slab through the wrapper equals
+    the square product's rows, and a square Gram's offset can only be 0."""
+    g = np.random.default_rng(23)
+    X2s = torch.tensor(g.random((200, 12)), dtype=torch.float32)
+    Xs = X2s[60:110] * (1 + 1e-3)   # rows 60..109, moved a little
+    E = torch.zeros(200, 50)
+    E[60 + torch.arange(50), torch.arange(50)] = 1.0   # out[r, c] = K(r, 60 + c)
+    v = torch.tensor([1.3])
+    for fam in FAMILY.values():
+        out = tf.stationary_gram_matvec_plain(Xs, X2s, E, v, fam, diag_offset=60)
+        assert torch.equal(torch.diagonal(out), v.expand(50))
+        bare = tf.stationary_gram_matvec_plain(Xs, X2s, E, v, fam)
+        assert not torch.equal(torch.diagonal(bare), v.expand(50))
+        off = ~torch.eye(50, dtype=torch.bool)
+        assert torch.equal(out[off], bare[off])
+    X, _, V, ls = _fused_inputs(240, 12, 9, seed=24)
+    kern = tk.RBF(12, variance=1.1, lengthscale=ls, ARD=True, device="cpu",
+                  dtype=torch.float32)
+    full = tf.kern_gram_matvec_fused(kern, _t(X), _t(V))
+    for i0 in (0, 60, 180):
+        slab = tf.kern_gram_matvec_fused(kern, _t(X[i0:i0 + 60]), _t(V), X2=_t(X),
+                                         diag_offset=i0)
+        assert torch.equal(slab, full[i0:i0 + 60])
+    with pytest.raises(ValueError, match="diag_offset"):
+        tf.stationary_gram_matvec_fused(_t(X), _t(V), 1.0, 1.0, diag_offset=3)
 
 
 # --- B6: the differentiable form's backward against the reference VJP -------

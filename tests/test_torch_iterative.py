@@ -85,12 +85,20 @@ def test_slq_logdet_matches_reference_and_truth():
 # --- twin models ------------------------------------------------------------
 
 # name -> (kernel, IterativeGaussianInference options, tolerance[, predict
-# points]). float64 paths agree to 1e-7; "fused" runs float32 kernels on
-# both sides (Pallas in interpret mode, the port's plain twin) inside
-# float64 models, whose CG differs in float32 rounding of each product
-# (readings: NLML 6e-10, gradient 4.5e-7, predictions 3e-7);
-# "fused_predict40" predicts at 40 points, so the predict's CG has R = 40
-# right-hand sides (B5's wide kernel on the card); "bf16" stores a bfloat16
+# points[, input dimensions, lengthscale]]). float64 paths agree to 1e-7;
+# "fused" runs float32 kernels on both sides (Pallas in interpret mode, the
+# port's plain twin) inside float64 models, whose CG differs in float32
+# rounding of each product (readings: NLML 6e-10, gradient 4.5e-7,
+# predictions 3e-7); "fused_predict40" predicts at 40 points, so the
+# predict's CG has R = 40 right-hand sides (B5's wide kernel on the card);
+# "fused_d12" is the fused model on 12 input dimensions (an ARD RBF from
+# lengthscale 3.0, the card's D=12 path at N=300), where the reference forms
+# r2 by the expansion |x|^2 + |x'|^2 - 2 x.x' in float32 and the port's twin
+# by direct differences on centred inputs: the two round r2 differently by
+# ~1e-7 of |x|^2, which moves each product's float32 K by as much as the
+# products' own rounding (readings: NLML 9.1e-9, gradient 1.0e-7, mean
+# 1.3e-6 of its largest entry, variance 1.2e-8; 1e-5 is ~8x the largest,
+# the "fused" case's limit); "bf16" stores a bfloat16
 # Gram on both sides, where one entry rounding the other way would move the
 # NLML ~1e-7.
 CASES = {
@@ -100,16 +108,18 @@ CASES = {
     "fused": ("RBF", dict(materialize=False, fused=True, fused_accum="exact"), 1e-5),
     "fused_predict40": ("RBF", dict(materialize=False, fused=True, fused_accum="f32x3"), 1e-5,
                         40),
+    "fused_d12": ("RBF", dict(materialize=False, fused=True, fused_accum="exact"), 1e-5, 7,
+                  12, 3.0),
     "bf16_gram": ("RBF", dict(materialize=True, gram_dtype="bfloat16"), 1e-6),
 }
 
 
-def _data(seed=0, n_pred=7):
+def _data(seed=0, n_pred=7, d=D):
     rng = np.random.default_rng(seed)
-    X = rng.uniform(0, 10, (N, D))
+    X = rng.uniform(0, 10, (N, d))
     Y = np.sin(X[:, :1]) + 0.1 * rng.standard_normal((N, 1))
-    Xs = rng.uniform(0, 10, (7, D))
-    return X, Y, Xs if n_pred == 7 else np.vstack([Xs, rng.uniform(0, 10, (n_pred - 7, D))])
+    Xs = rng.uniform(0, 10, (7, d))
+    return X, Y, Xs if n_pred == 7 else np.vstack([Xs, rng.uniform(0, 10, (n_pred - 7, d))])
 
 
 def _hand_jax_probes(inf, rank):
@@ -127,15 +137,15 @@ def _hand_jax_probes(inf, rank):
 @pytest.fixture(scope="module", params=list(CASES))
 def twin_run(request):
     torch.set_num_threads(1)
-    kname, opts, tol, *n_pred = CASES[request.param]
+    kname, opts, tol, n_pred, d, ls = (CASES[request.param] + (7, D, None))[:6]
     opts = dict(max_cg=MAX_CG, n_probes=P, block=128, seed=0, **opts)
-    X, Y, Xs = _data(n_pred=n_pred[0] if n_pred else 7)
-    jm = JGPRegression(X, Y, getattr(gk, kname)(D, ARD=True), noise_var=0.1,
+    X, Y, Xs = _data(n_pred=n_pred, d=d)
+    jm = JGPRegression(X, Y, getattr(gk, kname)(d, ARD=True, lengthscale=ls), noise_var=0.1,
                        inference_method=jit_mod.IterativeGaussianInference(**opts))
     tinf = tit.IterativeGaussianInference(**opts)
     _hand_jax_probes(tinf, opts.get("precond_rank", 0))
-    tm = GPRegression(X, Y, getattr(tk, kname)(D, ARD=True, device="cpu"), noise_var=0.1,
-                      inference_method=tinf, device="cpu")
+    tm = GPRegression(X, Y, getattr(tk, kname)(d, ARD=True, lengthscale=ls, device="cpu"),
+                      noise_var=0.1, inference_method=tinf, device="cpu")
     orig = jit_mod.IterativeGaussianInference._effective_fused
     if opts.get("fused"):  # gpy_tpu engages fused on a TPU only: force it
         # (tests/test_iterative.py:211-221); the port runs the plain twins
@@ -150,7 +160,8 @@ def twin_run(request):
     ft, gt = tm._objective_and_grad(tm.get_flat_raw())
     pt = tm.predict(Xs)
     assert (tf.matvec_launches, tf.moments_launches) == before  # CPU: plain twins only
-    return {"tol": tol, "j": (float(fj), np.asarray(gj), pj), "t": (ft, gt, pt), "tm": tm}
+    return {"tol": tol, "j": (float(fj), np.asarray(gj), pj), "t": (ft, gt, pt), "tm": tm,
+            "D": d, "Xs": Xs[:7]}
 
 
 def test_twin_nlml(twin_run):
@@ -160,7 +171,7 @@ def test_twin_nlml(twin_run):
 
 def test_twin_gradient_index_by_index(twin_run):
     gt, gj = twin_run["t"][1], twin_run["j"][1]
-    assert gt.shape == gj.shape == (D + 2,)
+    assert gt.shape == gj.shape == (twin_run["D"] + 2,)
     assert np.max(np.abs(gt - gj)) <= twin_run["tol"] * np.max(np.abs(gj))
 
 
@@ -177,7 +188,7 @@ def test_posterior_holds_no_graph_and_full_cov_matches_its_diagonal(twin_run):
     the marginal variance (the same CG solve)."""
     tm = twin_run["tm"]
     assert not tm.posterior.woodbury_vector.requires_grad
-    Xs = _data()[2]
+    Xs = twin_run["Xs"]
     _, var = tm.predict_noiseless(Xs)
     _, cov = tm.predict_noiseless(Xs, full_cov=True)
     assert cov.shape == (7, 7)

@@ -11,13 +11,13 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "gpy_tpu_torch", "csrc", "gram_matvec_fused.cu")
 
 
-@pytest.mark.parametrize("copies", ["PHASE_COPIES", "CHUNK_PHASE_COPIES",
+@pytest.mark.parametrize("copies", ["PHASE_COPIES", "CROSS_PHASE_COPIES",
                                     "MOMENTS_PHASE_COPIES", "WIDE_PHASE_COPIES"])
 def test_phase_copies_apply_to_the_kernel_source(tmp_path, copies):
     """Each copy finds its text in csrc/gram_matvec_fused.cu exactly once
-    (B5's register-tile kernel's, the chunk kernel's that the D > 8 path
-    keeps, B6's register-tile kernel's and B5's wide kernel's), so an edit
-    of the kernel that moves that text fails here, not on the card."""
+    (B5's register-tile kernel's, its cross-term kernel's (D > 8), B6's
+    register-tile kernel's and B5's wide kernel's), so an edit of the kernel
+    that moves that text fails here, not on the card."""
     table = getattr(matvec_probe, copies)
     original = open(SRC).read()
     for subs in table.values():
@@ -102,3 +102,51 @@ def test_wide_producers_wait_for_tile_0s_raw_rows():
     pre = consume[consume.index("if (tiles > 0) {"):consume.index("for (int64_t tile = 0;")]
     assert pre.index("transpose(0);") < pre.index(
         "if (tiles > 1) bar_arrive(kBarEmpty + 1, kWideThreads);")
+
+
+@pytest.mark.parametrize("d, r, route", [(9, 1, "cross"), (12, 9, "cross"), (64, 16, "cross"),
+                                         (65, 9, "wide"), (12, 17, "wide")])
+def test_wide_d_narrow_r_routes_to_the_cross_term_kernel(d, r, route):
+    """matvec_family sends 8 < D <= kCrossMaxD (64) at R <= 16 to the
+    cross-term kernel, after the register-tile kernel's branches and before
+    the tensor-core kernel's, which takes R > 16 and D > 64; the chunk kernel
+    it replaced is gone; matvec_cross picks R chunk 1, 9 or 16; its launch
+    takes two m-blocks a warp where three blocks fit in shared memory, else
+    one; and the instance chip_smoke.py and matvec_probe.py report (RBF, R
+    chunk 9, two m-blocks: the D=12 path's) is the kernel's template."""
+    src = open(SRC).read()
+    fam = _matvec_family(src)
+    lines = [ln.strip() for ln in fam.splitlines() if "return" in ln]
+    cross = next(i for i, ln in enumerate(lines) if "matvec_cross<FAM>" in ln)
+    tile = [i for i, ln in enumerate(lines) if "matvec_tile<" in ln]
+    wide = [i for i, ln in enumerate(lines) if "launch_wide<" in ln]
+    assert max(tile) < cross < min(wide)
+    assert lines[cross].startswith("if (d <= kCrossMaxD && r <= 16)")
+    assert "constexpr int kCrossMaxD = 64;" in src
+    taken = "cross" if 8 < d <= 64 and r <= 16 else "wide"
+    assert taken == route
+    body = src[src.index("int matvec_cross("):]
+    body = body[:body.index("\n}\n")]
+    assert "if (r == 1) return launch_cross<FAM, 1>" in body
+    assert "if (r <= 9) return launch_cross<FAM, 9>" in body
+    assert "return launch_cross<FAM, 16>" in body
+    assert "gram_matvec_kernel<" not in src and "launch_matvec" not in src
+    assert "template <int FAM, int RC, int MB>\n__global__ void __launch_bounds__(" \
+           "kCrossThreads<MB>, cross_min_blocks(RC, MB))\ngram_matvec_cross_kernel(" in src
+    assert chip_smoke.CROSS_B5_INSTANCE == "gram_matvec_cross_kernelILi0ELi9ELi2EE"
+    assert chip_smoke.CROSS_B5_INSTANCE in matvec_probe.MAIN_PATH_SASS
+    assert chip_smoke.CROSS_MAX_D == 64
+    launch = src[src.index("int launch_cross("):src.index("int matvec_cross(")]
+    assert "const bool two = cross_min_blocks(RC, 2) * (bytes + 1024) <= 228 * 1024;" in launch
+    assert "if (two)\n    gram_matvec_cross_kernel<FAM, RC, 2><<<" in launch
+
+
+def test_probe_calls_each_version_with_its_own_c_interface(tmp_path):
+    """B5's entry point takes the diagonal's row offset, the wrapper passes
+    it, and the probe calls a version without it (a parent's) without it."""
+    src = open(SRC).read()
+    assert matvec_probe.has_diag_abi(SRC)
+    old = tmp_path / "old.cu"
+    old.write_text(src.replace("int r, int family, int64_t diag, void* stream",
+                               "int r, int family, void* stream"))
+    assert not matvec_probe.has_diag_abi(str(old))
