@@ -32,7 +32,9 @@ Phases, each printing one JSON line:
                 and its gradient moments (B6, through the autograd
                 Function) against autograd of the plain twin for the four
                 families at D = 1, 4, 8, 12 by R = 1, 9, 16 and two ragged
-                N (and on unaligned views);
+                N, the mma kernel's domain (R = 17, 64 and 72; D = 20, 33,
+                72 and 127; ragged N at D = 12 and R = 17), and on
+                unaligned views;
   8. iterative -- the iterative exact-GP main path at bench.py's N=50,000
                 D=4 configuration in float32, two models: fused=True,
                 materialize=False (B5/B6) and the default materialized
@@ -47,7 +49,9 @@ Phases, each printing one JSON line:
   9. iterative_times -- B5 at N=50,000 by the profiler's device time and
                 by CUDA events (R = 9, 16, 256, 1, 17, 64, 1024), B6 (and
                 its reduce) by
-                the profiler's device time and by events, each
+                the profiler's device time and by events (R = 9, and the
+                mma kernel at R = 17 on signed inputs, a second launch bit
+                for bit and its own limit), each
                 beside its plain twin and bounds, each kernel's error there
                 checked against its plain twin, NLML+gradient and predict
                 times of both models, the materialized matvec's matmul;
@@ -57,10 +61,13 @@ Phases, each printing one JSON line:
                 ARD RBF from lengthscale 3.0), fused: the user's steps with
                 the launch counters (49 B5 launches and one B6 an
                 objective_and_grad, B5's under the cross-term kernel's
-                profiler name), float32 against a float64 materialized twin
-                at the same probes (NLML and 14 gradient entries), the
-                NLML+gradient and predict times, the cross-term kernel and
-                the tensor-core kernel (R = 256) at N=50,000, D=12;
+                profiler name, B6's under its mma kernel's), float32
+                against a float64 materialized twin at the same probes
+                (NLML and 14 gradient entries), the NLML+gradient and
+                predict times, the cross-term kernel, the tensor-core
+                kernel (R = 256) and B6's mma kernel (R = 9, on signed
+                inputs, a second launch bit for bit and its own limit) at
+                N=50,000, D=12;
  12. kernels_chol -- the batched block Cholesky B2/B3 against its plain twin
                 at every batch the main path gives it (C = 2, 4, 8, 16)
                 and at 1, 32 and 64, float32 and float64; B4 (chol + inverse)
@@ -729,6 +736,11 @@ FUSED_BWD_TOL = 2e-6
 # tensor-core kernel: 3.1e-6, 2.8e-6 and 2.6e-6 (2.9e-6 at R=256)
 FUSED_FWD_TOL_50K = {9: 3e-5, 256: 1.5e-4, 1: 3e-5, 16: 3e-5, 17: 3e-5, 64: 3e-5, 1024: 3e-5}
 FUSED_BWD_TOL_50K = 1e-6
+# B6's mma kernel (D > 8 or R > 16) at N=50,000 on signed G and V against
+# the float64 plain twin, by (D, R), relative to max|ref|: ~10x the
+# readings on an H100 (1.24e-7 at D=12, R=9 and 2.85e-7 at D=4, R=17; the
+# chunk kernel it replaced read 6.0e-8 and 1.33e-7)
+MOMENTS_MMA_TOL_50K = {(12, 9): 1.2e-6, (4, 17): 3e-6}
 
 
 def fused_inputs(N, M, D, R, seed, positive=False):
@@ -928,9 +940,14 @@ def check_cross(fm):
 
 
 # B6's shapes (N, D, R): the register-tile kernel at D = 1, 4, 8 (DMAX 4
-# and 8) by its R chunks 1, 9, 16, the chunk kernel at D = 12, and ragged N
+# and 8) by its R chunks 1, 9, 16, and ragged N; the mma kernel at D = 12
+# (DMAX 12), at R > 16 (DMAX 4 and 12, R = 64 its widest launch), in two
+# passes (D = 20, 33, 72; 127 at R = 1, the widest D), ragged N, and DMAX 8
+# at R = 72, two launches summed into the same rows
 MOMENT_SHAPES = [(4096, D, R) for D in (1, 4, 8, 12) for R in (1, 9, 16)] + [
-    (2047, 4, 9), (2047, 8, 16)]
+    (2047, 4, 9), (2047, 8, 16),
+    (4096, 4, 17), (4096, 12, 64), (4096, 20, 9), (4096, 33, 16), (4096, 72, 9),
+    (4096, 127, 1), (2047, 12, 9), (2047, 4, 17), (2047, 8, 72)]
 
 
 def run_fused_checks(fm):
@@ -1252,8 +1269,10 @@ MAIN_B5_INSTANCE = "gram_matvec_tile_kernelILi0ELi9ELi4E"
 WIDE_B5_INSTANCE = "gram_matvec_tc_kernelILi0ELi4E"
 MAIN_B6_INSTANCE = "gram_moments_tile_kernelILi0ELi9ELi4E"
 B6_KERNEL = "gram_moments_tile_kernel<"
-# B6's chunk kernel (D > 8 or R > 16) by the profiler's name
-B6_CHUNK_KERNEL = "gram_moments_kernel<"
+# B6's mma kernel (D > 8 or R > 16) by the profiler's name, and its instance
+# on the D=12 path (RBF, DMAX 12, two k-steps of R)
+B6_CHUNK_KERNEL = "gram_moments_mma_kernel<"
+CHUNK_B6_INSTANCE = "gram_moments_mma_kernelILi0ELi12ELi2EE"
 # the widest D the cross-term kernel takes (kCrossMaxD)
 CROSS_MAX_D = 64
 
@@ -1277,6 +1296,25 @@ def gram_moments_bound(N, D, R):
     t_bytes = (4 * (N * D + 2 * N * R + 1) + 8 * (D + 1)) / PEAK_BYTES_S
     t_ops = N * N * (2 * R + 6 * D + 5) / PEAK_FLOPS["float32"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gram_moments_bounds(N, D, R):
+    """Least time for B6's mma kernel (float32), the longest of: the bytes
+    (gram_moments_bound's); W's 3 passes of 2R TF32 operations an entry at
+    the TF32 peak; the SIMT operations that remain, 4D + 7 an entry (each
+    dimension's difference, square, sum into r2 and moment; the weights) at
+    the float32 peak. `bound_mma_by` names the longest of the three;
+    `bound_all_simt_ms`: gram_moments_bound's count, W in FFMA, the table's
+    second yardstick."""
+    t = {"bytes": (4 * (N * D + 2 * N * R + 1) + 8 * (D + 1)) / PEAK_BYTES_S,
+         "operations": N * N * (4 * D + 7) / PEAK_FLOPS["float32"],
+         "tensor_cores": N * N * 3 * 2 * R / PEAK_TF32_TC}
+    by = max(t, key=t.get)
+    all_simt_ms, all_simt_by = gram_moments_bound(N, D, R)
+    return {"bound_ms": t[by] * 1e3, "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_mma_by": by, "bound_simt_ms": t["operations"] * 1e3,
+            "bound_tensor_cores_ms": t["tensor_cores"] * 1e3,
+            "bound_all_simt_ms": all_simt_ms, "bound_all_simt_by": all_simt_by}
 
 
 def time_fused(fm, R, reps, plain_reps, D=ITER_D):
@@ -1312,22 +1350,27 @@ def time_fused(fm, R, reps, plain_reps, D=ITER_D):
             "rel_err": rel, "rel_tol": tol, "library_ms": None}
 
 
-def time_moments(fm, R=9):
-    """B6 at N=50,000, D=4: the profiler's device time per launch of its
-    register-tile kernel (`ms`) and of its reduce (`reduce_ms`) beside the
-    event time of the two (`event_ms`), the plain twin's time, its error
-    against the float64 twin and its bound."""
+def time_moments(fm, R=9, D=ITER_D):
+    """B6 at N=50,000 (D=4 unless given) on signed G and V: the profiler's
+    device time per launch of its kernel (`ms`; the register-tile kernel,
+    or the mma kernel at D > 8 or R > 16) and of its reduce (`reduce_ms`)
+    beside the event time of the two (`event_ms`), the plain twin's time, a
+    second launch bit for bit, its error against the float64 twin within
+    FUSED_BWD_TOL_50K (the mma kernel: MOMENTS_MMA_TOL_50K) and its
+    bounds."""
     import torch
 
-    X, _, V, ls, v = fused_inputs(ITER_N, None, ITER_D, R, seed=12)
-    _, _, G, _, _ = fused_inputs(ITER_N, None, ITER_D, R, seed=13)
+    mma = D > 8 or R > 16
+    X, _, V, ls, v = fused_inputs(ITER_N, None, D, R, seed=12)
+    _, _, G, _, _ = fused_inputs(ITER_N, None, D, R, seed=13)
     Xs = (X / ls).contiguous()
     v1 = v.reshape(1)
 
     def run():
         return fm.gram_moments_cuda(Xs, G, V, v1, 0)
 
-    ms, reduce_ms, _, _ = device_ms(run, reps=10, warmup=1, kernel=B6_KERNEL)
+    ms, reduce_ms, _, _ = device_ms(run, reps=10, warmup=1,
+                                    kernel=B6_CHUNK_KERNEL if mma else B6_KERNEL)
     event_ms = cuda_ms(run, reps=10, warmup=1)
     plain_ms = cuda_ms(lambda: fm.gram_moments_plain(Xs, G, V, v1, 0), reps=2, warmup=1)
     a = fm.gram_moments_cuda(Xs, G, V, v1, 0)
@@ -1337,13 +1380,15 @@ def time_moments(fm, R=9):
     check(torch.isfinite(a).all(), f"gram_moments N={ITER_N}: non-finite moments")
     err = float((a - b).abs().max())
     rel = err / float(b.abs().max())
-    check(rel <= FUSED_BWD_TOL_50K,
-          f"gram_moments N={ITER_N} R={R}: rel err {rel} vs float64 plain > {FUSED_BWD_TOL_50K}")
-    bound_ms, bound_by = gram_moments_bound(ITER_N, ITER_D, R)
-    return {"N": ITER_N, "D": ITER_D, "R": R, "dtype": "float32", "ms": ms,
+    tol = MOMENTS_MMA_TOL_50K[(D, R)] if mma else FUSED_BWD_TOL_50K
+    check(rel <= tol, f"gram_moments N={ITER_N} D={D} R={R}: rel err {rel} vs float64 plain > {tol}")
+    bounds = (gram_moments_bounds(ITER_N, D, R) if mma
+              else dict(zip(("bound_ms", "bound_by"), gram_moments_bound(ITER_N, D, R))))
+    return {"N": ITER_N, "D": D, "R": R, "dtype": "float32", "ms": ms,
+            "kernel": B6_CHUNK_KERNEL if mma else B6_KERNEL,
             "reduce_ms": reduce_ms, "event_ms": event_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "repeats_bit_for_bit": True,
-            "max_abs_err_vs_f64_plain": err, "rel_err": rel, "rel_tol": FUSED_BWD_TOL_50K,
+            **bounds, "repeats_bit_for_bit": True,
+            "max_abs_err_vs_f64_plain": err, "rel_err": rel, "rel_tol": tol,
             "max_elementwise_rel_err_vs_f64_plain": float(((a - b).abs() / b.abs()).max()),
             "library_ms": None}
 
@@ -1361,7 +1406,7 @@ def iterative_times(models, Xs, fm, smi):
                                  time_fused(fm, 1024, reps=5, plain_reps=1)],
            "gram_matvec_fused_timing": "ms: torch.profiler device time per launch; "
                                        "event_ms: CUDA events over the same launches",
-           "gram_moments": [time_moments(fm)]}
+           "gram_moments": [time_moments(fm), time_moments(fm, 17)]}
     torch.cuda.empty_cache()
     for tag, (m, _) in models.items():
         x = m.optimizer_array
@@ -1499,6 +1544,8 @@ def run_iterative_d12(fm, smi):
     torch.cuda.empty_cache()
     rec["cross_kernel"] = time_fused(fm, 9, reps=10, plain_reps=1, D=D12)
     rec["wide_kernel_r256"] = time_fused(fm, 256, reps=5, plain_reps=1, D=D12)
+    torch.cuda.empty_cache()
+    rec["moments_kernel"] = time_moments(fm, 9, D=D12)
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_start
     rec["nvidia_smi"] = smi
@@ -6715,6 +6762,7 @@ def main() -> int:
 
     main_shape = gram[0]
     mv, mom = itimes["gram_matvec_fused"][0], itimes["gram_moments"][0]
+    mom_mma = [itimes["gram_moments"][1], d12["moments_kernel"]]
     b2, b4 = (next(r for r in ctimes[k] if r["C"] == 8 and r["dtype"] == "float32")
               for k in ("block_chol", "block_chol_inv"))
     mv_all = itimes["gram_matvec_fused"]
@@ -6811,15 +6859,33 @@ def main() -> int:
         "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
         "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:269",
         "launches": iter_rec["fused"]["launches"]["gram_moments"]
-        + d12["drive"]["launches"]["gram_moments"] + surf_rec["launches_gram_moments"],
+        + surf_rec["launches_gram_moments"],
         "launches_iterative": iter_rec["fused"]["launches"]["gram_moments"],
-        "launches_iterative_d12_chunk_kernel": d12["drive"]["launches"]["gram_moments"],
         "launches_surface": surf_rec["launches_gram_moments"],
         "max_abs_err": mom["max_abs_err_vs_f64_plain"], "main_path_rel_err": mom["rel_err"],
         "main_path_rel_tol": FUSED_BWD_TOL_50K, "shape": f"N={ITER_N}, D={ITER_D}, R=9",
         "ms": mom["ms"], "reduce_ms": mom["reduce_ms"], "event_ms": mom["event_ms"],
         "plain_ms": mom["plain_ms"], "bound_ms": mom["bound_ms"], "bound_by": mom["bound_by"],
         "ptxas": ptxas_of(reports["gram_matvec_fused"], MAIN_B6_INSTANCE), "library_ms": None,
+    }, {
+        "name": "gram_moments_mma", "route": "cuda",
+        "source": "gpy_tpu_torch/csrc/gram_matvec_fused.cu",
+        "replaces": "gpy_tpu/ops/pallas_gram_matvec.py:269",
+        "kernel": CHUNK_B6_INSTANCE, "route_detail": "mma.sync m16n8k8 TF32, 3 passes (W)",
+        "launches": d12["drive"]["launches"]["gram_moments"],
+        "launches_per_objective_and_grad_by_name": d12["launches_by_profiler_name"],
+        "max_abs_err": max(mm["max_abs_err_vs_f64_plain"] for mm in mom_mma),
+        "main_path_rel_err": d12["moments_kernel"]["rel_err"],
+        "main_path_rel_tol": d12["moments_kernel"]["rel_tol"],
+        "rel_err_d4_r17": itimes["gram_moments"][1]["rel_err"],
+        "shape": f"N={ITER_N}, D={D12}, R=9", "ms": d12["moments_kernel"]["ms"],
+        "reduce_ms": d12["moments_kernel"]["reduce_ms"],
+        "event_ms": d12["moments_kernel"]["event_ms"],
+        "plain_ms": d12["moments_kernel"]["plain_ms"],
+        "bound_ms": d12["moments_kernel"]["bound_ms"], "bound_by": d12["moments_kernel"]["bound_by"],
+        "bound_all_simt_ms": d12["moments_kernel"]["bound_all_simt_ms"],
+        "ms_d4_r17": itimes["gram_moments"][1]["ms"],
+        "ptxas": ptxas_of(reports["gram_matvec_fused"], CHUNK_B6_INSTANCE), "library_ms": None,
     }, {
         "name": "block_chol", "route": "cuda", "source": "gpy_tpu_torch/csrc/block_chol.cu",
         "replaces": "gpy_tpu/ops/pallas_chol.py:123 (_block_kernel_v2) and :175 "

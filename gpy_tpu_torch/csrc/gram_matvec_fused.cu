@@ -52,89 +52,37 @@
 // reference's 3-pass bfloat16 "f32x3" and 1-pass "fast".
 //
 // B6 for D <= 8 and R <= 16 (the main path) is the register-tile kernel
-// gram_moments_tile_kernel below, on B5's column walk. The chunk kernel
-// gram_moments_kernel takes the rest, square, in 64 x 64 tiles: per tile a
-// thread forms its 4x4 block of W (R staged 16 at a time), r2, K and
-// -dK/dr2, then the moments of one 16-dimension chunk (grid.y walks the
-// chunks, so any D works; r2 is recomputed per chunk). In both, each thread
-// sums a tile's entries in float and adds the sum to float64 accumulators;
-// the block reduces them in a fixed order into one partial row, and a
-// second one-block kernel sums the rows in a fixed order in float64. The
-// gradient repeats bit for bit.
+// gram_moments_tile_kernel below, on B5's column walk. The mma kernel
+// gram_moments_mma_kernel takes the rest (D > 8 or R > 16, D <= 127): rows
+// staged once, column tiles copied ahead with cp.async, W = G V' in 3xTF32 on
+// mma.sync, every dimension in one pass over the columns. In both, each
+// thread sums a tile's entries in float and the block adds them into float64
+// in a fixed order, one partial row a block; a second one-block kernel sums
+// the rows in a fixed order in float64. The gradient repeats bit for bit.
 //
 // Exponential's -dK/dr2 = v exp(-r) / (2r) is ~5e14 v at r = sqrt(1e-30):
 // finite, and it multiplies an exactly-zero dx^2 on the diagonal. The build
 // uses no fast-math flag and flushes no denormals, so this stays 0, not
 // inf * 0.
 //
-// What B6's chunk kernel leaves on the table: the tensor cores, TMA and a
-// persistent schedule, and re-staging of the row tile for every column
-// tile; the register-tile kernels and B5's cross-term kernel take the
-// last. Where the tensor-core kernels' time goes: PERF.md.
+// What the kernels leave on the table: TMA and a persistent schedule. Where
+// the tensor-core kernels' time goes: PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 64;                // rows and columns per tile
-constexpr int kThreads = 16;             // threads per tile edge
-constexpr int kPer = kTile / kThreads;   // entries per thread per edge (4)
-constexpr int kChunk = 16;               // dims (or R columns) staged per pass
-constexpr int kBlock = kThreads * kThreads;
-constexpr int kMomStride = kChunk + 1;   // one partial row: [s0, m_1..m_16]
-
-// Blocks per SM B6's chunk kernel's register budget is set for: 65,536
-// registers / (256 threads * 2) = 128 a thread. On an H100 this budget ran
-// the moments faster than the compiler's unbounded choice.
-constexpr int kMinBlocks = 2;
-
-// -dK/dr2 and K from r2 for each family (B6's chunk kernel); constants are
-// the float32 values of the reference's jnp.sqrt(jnp.float32(3.0)) and sqrt(5).
-template <int FAM>
-__device__ __forceinline__ void k_and_nkp(float r2, float v, float* k, float* nkp) {
-  if (FAM == 0) {
-    const float e = expf(-0.5f * r2);
-    *k = v * e;
-    *nkp = 0.5f * v * e;
-    return;
-  }
-  const float r = sqrtf(r2 + 1e-30f);
-  if (FAM == 1) {
-    const float s = 1.7320508075688772f * r;
-    const float e = expf(-s);
-    *k = v * (1.0f + s) * e;
-    *nkp = 1.5f * v * e;
-  } else if (FAM == 2) {
-    const float s = 2.23606797749979f * r;
-    const float e = expf(-s);
-    *k = v * (1.0f + s + s * s / 3.0f) * e;
-    *nkp = (5.0f / 6.0f) * v * (1.0f + s) * e;
-  } else {
-    const float e = expf(-r);
-    *k = v * e;
-    *nkp = 0.5f * v * e / r;
-  }
-}
-
-// Stage `kChunk` columns [k0, k0 + kChunk) of the 64 rows [row0, row0 + 64)
-// of a row-major (rows, width) matrix into s[k][row], zero outside.
-__device__ __forceinline__ void stage(float (*s)[kTile + 1], const float* __restrict__ a,
-                                      int64_t row0, int64_t rows, int k0, int width, int tid) {
-  for (int idx = tid; idx < kTile * kChunk; idx += kBlock) {
-    const int rr = idx / kChunk;
-    const int k = idx % kChunk;
-    const int gk = k0 + k;
-    const int64_t gr = row0 + rr;
-    s[k][rr] = (gr < rows && gk < width) ? a[gr * width + gk] : 0.0f;
-  }
-}
+constexpr int kBlock = 256;    // threads of a B6 block (both kernels)
+constexpr int kMomRow = 128;   // doubles of a B6 partial row: [s0, m_1..m_D], D + 1 <= 128
 
 // Sum each of the block's kBlock threads' NQ values into row[0, NQ) in a
 // fixed order (warp shuffles, then warps 0, 1, ... in turn), so a B6
-// kernel's partial rows repeat bit for bit.
+// kernel's partial rows repeat bit for bit; `add` adds them to the row's
+// values instead.
 template <int NQ>
-__device__ __forceinline__ void block_sum(double (&mom)[NQ], double* __restrict__ row, int tid) {
+__device__ __forceinline__ void block_sum(double (&mom)[NQ], double* __restrict__ row, int tid,
+                                          bool add) {
   __shared__ double sred[kBlock / 32][NQ];
 #pragma unroll
   for (int q = 0; q < NQ; ++q)
@@ -149,133 +97,20 @@ __device__ __forceinline__ void block_sum(double (&mom)[NQ], double* __restrict_
   if (tid < NQ) {
     double s = 0.0;
     for (int wi = 0; wi < kBlock / 32; ++wi) s += sred[wi][tid];
-    row[tid] = s;
+    row[tid] = add ? row[tid] + s : s;
   }
 }
 
-template <int FAM>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
-gram_moments_kernel(const float* __restrict__ xs, const float* __restrict__ g,
-                    const float* __restrict__ vmat, const float* __restrict__ var,
-                    double* __restrict__ partial, int64_t n, int d, int r) {
-  __shared__ float sa[kChunk][kTile + 1];
-  __shared__ float sb[kChunk][kTile + 1];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kThreads + tx;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int nchunks = gridDim.y;
-  const int dc0 = blockIdx.y * kChunk;   // this block's moment dimensions
-  const int dcn = min(kChunk, d - dc0);
-  const float vv = var[0];
-
-  double mom[kMomStride];
-#pragma unroll
-  for (int q = 0; q < kMomStride; ++q) mom[q] = 0.0;
-
-  for (int64_t col0 = 0; col0 < n; col0 += kTile) {
-    float w[kPer][kPer], r2[kPer][kPer];
-#pragma unroll
-    for (int a = 0; a < kPer; ++a)
-#pragma unroll
-      for (int b = 0; b < kPer; ++b) w[a][b] = r2[a][b] = 0.0f;
-
-    // W = G_rows V_cols'
-    for (int r0 = 0; r0 < r; r0 += kChunk) {
-      __syncthreads();
-      stage(sa, g, row0, n, r0, r, tid);
-      stage(sb, vmat, col0, n, r0, r, tid);
-      __syncthreads();
-      const int kn = min(kChunk, r - r0);
-      for (int k = 0; k < kn; ++k) {
-        float ga[kPer], vb[kPer];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a) ga[a] = sa[k][ty + a * kThreads];
-#pragma unroll
-        for (int b = 0; b < kPer; ++b) vb[b] = sb[k][tx + b * kThreads];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a)
-#pragma unroll
-          for (int b = 0; b < kPer; ++b) w[a][b] = fmaf(ga[a], vb[b], w[a][b]);
-      }
-    }
-    // r2 over every dimension
-    for (int d0 = 0; d0 < d; d0 += kChunk) {
-      __syncthreads();
-      stage(sa, xs, row0, n, d0, d, tid);
-      stage(sb, xs, col0, n, d0, d, tid);
-      __syncthreads();
-      const int kn = min(kChunk, d - d0);
-      for (int k = 0; k < kn; ++k) {
-        float xa[kPer], xb[kPer];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a) xa[a] = sa[k][ty + a * kThreads];
-#pragma unroll
-        for (int b = 0; b < kPer; ++b) xb[b] = sb[k][tx + b * kThreads];
-#pragma unroll
-        for (int a = 0; a < kPer; ++a)
-#pragma unroll
-          for (int b = 0; b < kPer; ++b) {
-            const float diff = xa[a] - xb[b];
-            r2[a][b] = fmaf(diff, diff, r2[a][b]);
-          }
-      }
-    }
-    // weights: s0 takes W K, the moments W (-dK/dr2); w is reused for the latter
-    float s0 = 0.0f;
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) {
-      const bool col_ok = col0 + tx + b * kThreads < n;
-#pragma unroll
-      for (int a = 0; a < kPer; ++a) {
-        float k, nkp;
-        k_and_nkp<FAM>(r2[a][b], vv, &k, &nkp);
-        s0 = fmaf(col_ok ? w[a][b] : 0.0f, k, s0);
-        w[a][b] = col_ok ? w[a][b] * nkp : 0.0f;
-      }
-    }
-    mom[0] += s0;
-    if (nchunks > 1) {  // bring this block's dimension chunk back
-      __syncthreads();
-      stage(sa, xs, row0, n, dc0, d, tid);
-      stage(sb, xs, col0, n, dc0, d, tid);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      if (k >= dcn) break;
-      float p = 0.0f;
-#pragma unroll
-      for (int a = 0; a < kPer; ++a) {
-        const float xa = sa[k][ty + a * kThreads];
-#pragma unroll
-        for (int b = 0; b < kPer; ++b) {
-          const float diff = xa - sb[k][tx + b * kThreads];
-          p = fmaf(w[a][b], diff * diff, p);
-        }
-      }
-      mom[1 + k] += p;
-    }
-  }
-
-  block_sum(mom, partial + (static_cast<int64_t>(blockIdx.x) * nchunks + blockIdx.y) * kMomStride,
-            tid);
-}
-
-// out[0] = sum_t s0_t / v; out[1 + dd] = mscale * sum_t m_t,dd (mscale: 1
-// for the chunk kernel, the family's folded constant for the register-tile
-// kernel); rows summed in order.
+// out[0] = sum_t s0_t / v; out[1 + dd] = mscale * sum_t m_t,dd (mscale: the
+// family's folded constant, moments_scale); the `rows` partial rows summed
+// in order.
 __global__ void gram_moments_reduce(const double* __restrict__ partial,
                                     const float* __restrict__ var, double* __restrict__ out,
-                                    int tiles, int nchunks, int d, double mscale) {
+                                    int rows, int d, double mscale) {
   const int q = threadIdx.x;
   if (q > d) return;
-  const int chunk = q == 0 ? 0 : (q - 1) / kChunk;
-  const int slot = q == 0 ? 0 : 1 + (q - 1) % kChunk;
   double s = 0.0;
-  for (int t = 0; t < tiles; ++t)
-    s += partial[(static_cast<int64_t>(t) * nchunks + chunk) * kMomStride + slot];
+  for (int t = 0; t < rows; ++t) s += partial[static_cast<int64_t>(t) * kMomRow + q];
   out[q] = q == 0 ? s / static_cast<double>(var[0]) : s * mscale;
 }
 
@@ -699,7 +534,7 @@ gram_moments_tile_kernel(const float* __restrict__ xs, const float* __restrict__
       mt[e] = 0.0f;
     }
   });
-  block_sum(mom, partial + static_cast<int64_t>(blockIdx.x) * kMomStride, tid);
+  block_sum(mom, partial + static_cast<int64_t>(blockIdx.x) * kMomRow, tid, false);
 }
 
 // B5 for R > 16 (the iterative predict's CG: R = n* right-hand sides),
@@ -1469,6 +1304,395 @@ gram_matvec_cross_kernel(const float* __restrict__ xs, const float* __restrict__
   }
 }
 
+// B6 for D > 8 or R > 16 (D <= 127; the iterative exact GP's backward on
+// more than 8 input dimensions: one launch an NLML+gradient), redesigned for
+// Hopper with W on the tensor cores. One 256-thread block owns 128 rows, 16
+// a warp, and stages them once: v G's rows (V's columns c0 .. c0 + rc - 1)
+// split into TF32 hi and lo (split_tf32) in mma.sync m16n8k8's A-fragment
+// order in shared memory, and the rows' coordinates times the family's
+// folded constant (kCoordScale): in registers for D <= 12 (DMAX 4, 8 or 12,
+// zero-padded), in shared memory above. The block walks its share of the
+// columns (grid.y splits them, so that the last wave of blocks is not half
+// empty: 3-7% at D = 12 and 20; no entry is formed twice) in tiles of kMomCols: each tile's
+// coordinates and V's rows are copied whole with 16-byte cp.async into a raw
+// buffer two tiles ahead (zero-filled past N; V's elements one at a time
+// where a launch takes only part of its columns, R > kMomMaxR), and are
+// re-laid once they land into the layout the compute reads: coordinates
+// folded and padded to mom_ystride, V split into hi and lo in B-fragment
+// order. One barrier a tile. (4-byte copies straight into three layout
+// buffers ran up to 7% slower on an H100: PERF.md.) Per 8-column step a
+// warp forms W' = v (G V') of its 16 rows by the step's 8 columns in
+// 3xTF32 (lo.hi, hi.lo, hi.hi; lo.lo dropped; R zero-padded to a multiple
+// of 8; for R <= 16 the k-steps are fixed at compile time, KS), the next
+// step's W' issued before this step's
+// entries, so that the tensor cores run beside them (W in FFMA on the SIMT
+// cores, as the register-tile kernel forms it, ran 1.3x slower at D = 12,
+// R = 9 on an H100: PERF.md); each thread then takes the four entries its
+// accumulator holds (rows g, g + 8 by columns 2t, 2t + 1; g = lane / 4,
+// t = lane % 4), as the register-tile kernel does on the folded
+// coordinates: q_e = (x'_e - y'_e)^2, r2' = sum q_e, one ex2.approx,
+// moment_weights, s0 += wk and m_e += wn q_e. For D <= 12 each q_e is formed
+// once and used by both r2' and the moments. Above, a thread's D sums do
+// not fit in registers: r2' and the weights of a tile's 32 entries a thread
+// come first (wn kept in registers), then the moments 8 dimensions at a
+// time, each chunk forming its differences again (5D operations an entry
+// where one pass takes 4D; W and the weights are formed once). Each thread
+// sums a tile's entries in float32; after the tile a warp adds its lanes'
+// sums in a fixed butterfly (flush8) and adds the result into float64 sums
+// of the warp in shared memory; the block sums its warps in order into one
+// partial row. A launch takes at most kMomMaxR columns of V, fewer where
+// shared memory is short (D > 64 at R > 16); past that the moments, which
+// are linear in W, are summed over several launches into the same rows.
+// W' is 0 past N (V's rows there are zero) and on padded rows (G is zero
+// there), so ragged edges need no mask; on the diagonal q_e = 0 exactly, so
+// Exponential's finite 1/r' multiplies 0.
+//
+// Bound on an H100 SXM at N = 50,000, D = 12, R = 9: the all-SIMT count
+// (gram_moments_bound: 2R + 6D + 5 = 95 an entry) is 3.55 ms; with W on the
+// tensor cores (3 x 2R TF32 operations an entry at 495 TFLOP/s, 0.27 ms)
+// the SIMT cores keep 4D + 7 an entry (difference, square, r2, moment; the
+// weights), 2.05 ms (gram_moments_bounds).
+constexpr int kMomRows = 128;            // rows a block: 8 warps x 16
+constexpr int kMomWarps = kMomRows / 16;
+constexpr int kMomCols = 64;             // columns a tile
+constexpr int kMomSteps = kMomCols / 8;
+constexpr int kMomBufs = 2;              // tile j computed, j + 1 re-laid (and 2 raw
+                                         // buffers: j + 1 read, j + 2 landing)
+constexpr int kMomMaxR = 64;             // columns of V (and G) a launch
+constexpr int kMomMaxSplits = 4;         // column splits (grid.y)
+constexpr int kMomSmemMax = 232448 - 1024;  // dynamic shared memory a block may use,
+                                            // less room for block_sum's
+static_assert(kMomWarps * 32 == kBlock, "block_sum sums kBlock threads");
+static_assert(kMomCols * 4 == kBlock && kMomSteps == kMomWarps,
+              "a tile's copies: four threads a column, a warp a step's fragments");
+
+// Floats between two columns' (and rows') coordinates in shared memory:
+// DMAX for one pass (8 -> 12), else D up to a multiple of 8; a multiple of
+// 8 takes 4 more, so that the four columns a warp reads at once (2t + h)
+// fall in four different quarters of the 32 banks.
+__host__ __device__ constexpr int mom_ystride(int dmax, int d) {
+  return (dmax > 0 ? dmax : (d + 7) / 8 * 8) + ((dmax > 0 ? dmax : 8) % 8 == 0 ? 4 : 0);
+}
+
+// Floats of a raw tile: its columns' d coordinates and up to 8 ks of V's
+// columns.
+__host__ __device__ constexpr int mom_raw_floats(int d, int ks) { return kMomCols * (d + ks * 8); }
+
+// Bytes of the mma kernel's dynamic shared memory at D = d and ks 8-column
+// steps of R: the warps' float64 sums, the rows' A fragments, the two-pass
+// rows' coordinates, kMomBufs tiles of coordinates and B fragments, and two
+// raw tiles.
+__host__ __device__ constexpr int mom_smem_bytes(int dmax, int d, int ks) {
+  return static_cast<int>(sizeof(float)) *
+         (kMomWarps * kMomRow * 2 + kMomWarps * ks * 256 +
+          (dmax > 0 ? 0 : kMomRows * mom_ystride(0, d)) +
+          kMomBufs * (kMomCols * mom_ystride(dmax, d) + kMomSteps * ks * 128) +
+          2 * mom_raw_floats(d, ks));
+}
+
+// Blocks per SM the register budget is set for: 3 at DMAX 4 (85 registers),
+// else 2 (128).
+constexpr int mom_min_blocks(int dmax) { return dmax == 4 ? 3 : 2; }
+
+// v = p[0, 8), p 16-byte aligned (shared memory)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+template <int FAM, int DMAX, int KS>
+__global__ void __launch_bounds__(kBlock, mom_min_blocks(DMAX))
+gram_moments_mma_kernel(const float* __restrict__ xs, const float* __restrict__ g,
+                        const float* __restrict__ vmat, const float* __restrict__ var,
+                        double* __restrict__ partial, int64_t n, int d, int r, int c0, int rc,
+                        int add) {
+  constexpr float scale = kCoordScale<FAM>;
+  constexpr int kDX = DMAX > 0 ? DMAX : 1;
+  constexpr int kMT = (kDX + 7) / 8 * 8;  // one pass: the moments' float32 sums, padded
+  extern __shared__ __align__(16) float mom_smem[];
+  const int ks_n = KS > 0 ? KS : (rc + 7) / 8;  // 8-column steps of R
+  const int ys = mom_ystride(DMAX, d);
+  const int xtile = kMomCols * ys;                 // floats of a tile's coordinates
+  const int vtile = kMomSteps * ks_n * 128;        // floats of a tile's B fragments
+  double* wmom = reinterpret_cast<double*>(mom_smem);  // [warp][kMomRow]: the warp's m_1, ..
+  float* rowf = mom_smem + kMomWarps * kMomRow * 2;    // [m-block][ks][hi, lo][lane][4]
+  float* xcol = rowf + kMomWarps * ks_n * 256;         // [buf][column][ys]
+  float* vfr = xcol + kMomBufs * xtile;                // [buf][step][ks][lane][hi b0, b1, lo b0, b1]
+  float* xrow = vfr + kMomBufs * vtile;                // two passes: [row][ys]
+  float* raw = xrow + (DMAX > 0 ? 0 : kMomRows * ys);  // [2][column][d], then [2][column][rc]
+  const int rawt = mom_raw_floats(d, ks_n);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int t = lane % 4;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kMomRows;
+  const int64_t ra = row0 + warp * 16 + lane / 4;
+  const int64_t rb = ra + 8;
+  const float vv = var[0];
+
+  for (int i = tid; i < kMomWarps * kMomRow; i += kBlock) wmom[i] = 0.0;
+  // the block's rows of v G, once: A fragments (a0..a3: rows g, g + 8, g,
+  // g + 8 by columns t, t, t + 4, t + 4 of each step), hi and lo
+  for (int i = tid; i < kMomWarps * ks_n * 32; i += kBlock) {
+    const int l = i % 32;
+    const int ks = (i / 32) % ks_n;
+    const int mb = i / (32 * ks_n);
+    float a[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int64_t row = row0 + mb * 16 + l / 4 + (q & 1) * 8;
+      const int k = ks * 8 + l % 4 + (q & 2) * 2;
+      a[q] = (row < n && k < rc) ? __fmul_rn(vv, g[row * r + c0 + k]) : 0.0f;
+    }
+    float4 hi, lo;
+    split_tf32(a[0], hi.x, lo.x);
+    split_tf32(a[1], hi.y, lo.y);
+    split_tf32(a[2], hi.z, lo.z);
+    split_tf32(a[3], hi.w, lo.w);
+    float* dst = rowf + (mb * ks_n + ks) * 256 + l * 4;
+    *reinterpret_cast<float4*>(dst) = hi;
+    *reinterpret_cast<float4*>(dst + 128) = lo;
+  }
+  // the rows' folded coordinates: the thread's two rows in registers (one
+  // pass), or the block's in shared memory (two passes)
+  float xa[kDX], xb[kDX];
+#pragma unroll
+  for (int k = 0; k < kDX; ++k) {
+    xa[k] = (DMAX > 0 && ra < n && k < d) ? __fmul_rn(scale, xs[ra * d + k]) : 0.0f;
+    xb[k] = (DMAX > 0 && rb < n && k < d) ? __fmul_rn(scale, xs[rb * d + k]) : 0.0f;
+  }
+  if (DMAX == 0) {
+    for (int i = tid; i < kMomRows * ys; i += kBlock) {
+      const int rr = i / ys;
+      const int k = i - rr * ys;
+      const int64_t row = row0 + rr;
+      xrow[i] = (row < n && k < d) ? __fmul_rn(scale, xs[row * d + k]) : 0.0f;
+    }
+  }
+
+  // this split's column tiles
+  const int64_t ntiles = (n + kMomCols - 1) / kMomCols;
+  const int64_t t0 = ntiles * blockIdx.y / gridDim.y;
+  const int nt = static_cast<int>(ntiles * (blockIdx.y + 1) / gridDim.y - t0);
+  // `floats` contiguous floats from src into dst, 16 bytes a copy, zero
+  // past the `left` floats that remain in the array
+  auto copy_flat = [&](float* dst, const float* src, int floats, int64_t left) {
+    for (int i = tid; i < floats / 4; i += kBlock) {
+      const int64_t q = left - 4 * i;
+      copy_async16(dst + 4 * i, q > 0 ? src + 4 * i : src,
+                   q >= 4 ? 16 : (q > 0 ? 4 * static_cast<int>(q) : 0));
+    }
+  };
+  auto issue = [&](int k) {  // tile t0 + k into raw buffer k % 2
+    const int64_t col0 = (t0 + k) * kMomCols;
+    float* rx = raw + (k % 2) * rawt;
+    float* rv = rx + kMomCols * d;
+    copy_flat(rx, xs + col0 * d, kMomCols * d, (n - col0) * d);
+    if (rc == r) {  // the tile's rows of V are contiguous
+      copy_flat(rv, vmat + col0 * r, kMomCols * r, (n - col0) * r);
+    } else {
+      for (int i = tid; i < kMomCols * rc; i += kBlock) {
+        const int j = i / rc;
+        const bool in = col0 + j < n;
+        copy_async4(rv + i, in ? vmat + (col0 + j) * r + c0 + (i - j * rc) : vmat, in ? 4 : 0);
+      }
+    }
+    copy_async_commit();
+  };
+  // a landed tile re-laid into layout buffer k % kMomBufs: coordinates
+  // folded and zero-padded (four threads a column), V's fragments split
+  // (warp w those of step w)
+  const int cj = tid / 4;
+  auto prepare = [&](int k) {
+    const float* rx = raw + (k % 2) * rawt;
+    float* dx = xcol + (k % kMomBufs) * xtile + cj * ys;
+    for (int e = tid % 4; e < ys; e += 4) dx[e] = e < d ? __fmul_rn(scale, rx[cj * d + e]) : 0.0f;
+    const float* rv = rx + kMomCols * d + (warp * 8 + lane / 4) * rc;
+    float4* dv = reinterpret_cast<float4*>(vfr + (k % kMomBufs) * vtile) + warp * ks_n * 32 + lane;
+#pragma unroll
+    for (int kk = 0; kk < ks_n; ++kk) {
+      const int c = kk * 8 + lane % 4;
+      float4 o;
+      split_tf32(c < rc ? rv[c] : 0.0f, o.x, o.z);
+      split_tf32(c + 4 < rc ? rv[c + 4] : 0.0f, o.y, o.w);
+      dv[kk * 32] = o;
+    }
+  };
+  // W' of the warp's 16 rows by the 8 columns of step s: c[0], c[1] row g
+  // by columns 2t, 2t + 1, c[2], c[3] row g + 8; hi.hi and the two lo
+  // terms in two accumulators, so that two chains of mma.sync run at once
+  const float* at = rowf + warp * ks_n * 256 + lane * 4;
+  auto w_step = [&](const float* bt, int s, float (&c)[4]) {
+    float cl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    c[0] = c[1] = c[2] = c[3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < ks_n; ++kk) {
+      const float4 ah = *reinterpret_cast<const float4*>(at + kk * 256);
+      const float4 al = *reinterpret_cast<const float4*>(at + kk * 256 + 128);
+      const float4 b = *reinterpret_cast<const float4*>(bt + (s * ks_n + kk) * 128);
+      mma_tf32(cl, al, b.x, b.y);
+      mma_tf32(cl, ah, b.z, b.w);
+      mma_tf32(c, ah, b.x, b.y);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[q] += cl[q];
+  };
+  // a warp's eight float32 sums into its float64 sums of dimensions k0 ..
+  // k0 + 7: a butterfly over the lanes (each level halves the values a lane
+  // keeps), in the same order on every launch; lane 4j then holds the sum
+  // of dimension k0 + j
+  auto flush8 = [&](const float (&v)[8], int k0) {
+    const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+    float u[4], w2[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      u[i] = (b4 ? v[4 + i] : v[i]) + __shfl_xor_sync(0xffffffffu, b4 ? v[i] : v[4 + i], 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      w2[i] = (b3 ? u[2 + i] : u[i]) + __shfl_xor_sync(0xffffffffu, b3 ? u[i] : u[2 + i], 8);
+    float z = (b2 ? w2[1] : w2[0]) + __shfl_xor_sync(0xffffffffu, b2 ? w2[0] : w2[1], 4);
+    z += __shfl_xor_sync(0xffffffffu, z, 2);
+    z += __shfl_xor_sync(0xffffffffu, z, 1);
+    if (t == 0) wmom[warp * kMomRow + k0 + lane / 4] += static_cast<double>(z);
+  };
+
+  double m0 = 0.0;  // s0 over the walk
+  if (nt > 0) {
+    issue(0);
+    copy_async_wait();
+    __syncthreads();
+    prepare(0);
+    if (nt > 1) issue(1);
+  }
+  for (int k = 0; k < nt; ++k) {
+    // tile k + 1 has landed; every thread is done with tile k - 1's layout
+    // buffer and tile k's raw one
+    copy_async_wait();
+    __syncthreads();
+    if (k + 1 < nt) prepare(k + 1);
+    if (k + 2 < nt) issue(k + 2);
+    const float* xt = xcol + (k % kMomBufs) * xtile;
+    const float* bt = vfr + (k % kMomBufs) * vtile + lane * 4;
+    float s0 = 0.0f;
+    float c[4], cn[4];
+    w_step(bt, 0, c);
+    if constexpr (DMAX > 0) {
+      float mt[kMT];
+#pragma unroll
+      for (int e = 0; e < kMT; ++e) mt[e] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < kMomSteps; ++s) {
+        if (s + 1 < kMomSteps) w_step(bt, s + 1, cn);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // column 8 s + 2t + h
+          const float4* yp = reinterpret_cast<const float4*>(xt + (s * 8 + 2 * t + h) * ys);
+          float y[kDX];
+#pragma unroll
+          for (int k4 = 0; k4 < kDX / 4; ++k4) {
+            const float4 p = yp[k4];
+            y[4 * k4] = p.x; y[4 * k4 + 1] = p.y; y[4 * k4 + 2] = p.z; y[4 * k4 + 3] = p.w;
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {  // row g, then g + 8
+            const float* x = q ? xb : xa;
+            float dq[kDX];  // q_e: r2' and the moments both read them
+            float r2 = 0.0f;
+#pragma unroll
+            for (int e = 0; e < kDX; ++e) {
+              const float diff = x[e] - y[e];
+              dq[e] = __fmul_rn(diff, diff);
+              r2 = e == 0 ? dq[0] : __fadd_rn(r2, dq[e]);
+            }
+            float wk, wn;
+            moment_weights<FAM>(r2, c[2 * q + h], wk, wn);
+            s0 += wk;
+#pragma unroll
+            for (int e = 0; e < kDX; ++e) mt[e] = fmaf(wn, dq[e], mt[e]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[q] = cn[q];
+      }
+#pragma unroll
+      for (int k0 = 0; k0 < kMT; k0 += 8) {
+        float v8[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v8[i] = mt[k0 + i];
+        flush8(v8, k0);
+      }
+    } else {
+      const float* xra = xrow + (warp * 16 + lane / 4) * ys;
+      const float* xrb = xra + 8 * ys;
+      float wn[kMomSteps][4];  // the tile's weights, c's entries
+#pragma unroll
+      for (int s = 0; s < kMomSteps; ++s) {
+        if (s + 1 < kMomSteps) w_step(bt, s + 1, cn);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4* yp = reinterpret_cast<const float4*>(xt + (s * 8 + 2 * t + h) * ys);
+          float r2a = 0.0f, r2b = 0.0f;
+          for (int k4 = 0; k4 < (d + 3) / 4; ++k4) {
+            const float4 y = yp[k4];
+            const float4 a = reinterpret_cast<const float4*>(xra)[k4];
+            const float4 b = reinterpret_cast<const float4*>(xrb)[k4];
+            const float py[4] = {y.x, y.y, y.z, y.w}, pa[4] = {a.x, a.y, a.z, a.w},
+                        pb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float da = pa[e] - py[e], db = pb[e] - py[e];
+              r2a = __fadd_rn(r2a, __fmul_rn(da, da));
+              r2b = __fadd_rn(r2b, __fmul_rn(db, db));
+            }
+          }
+          float wk;
+          moment_weights<FAM>(r2a, c[h], wk, wn[s][h]);
+          s0 += wk;
+          moment_weights<FAM>(r2b, c[2 + h], wk, wn[s][2 + h]);
+          s0 += wk;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[q] = cn[q];
+      }
+      for (int k0 = 0; k0 < d; k0 += 8) {
+        float pa[8], pb[8], mt[8];
+        load8(xra + k0, pa);
+        load8(xrb + k0, pb);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) mt[i] = 0.0f;
+#pragma unroll
+        for (int s = 0; s < kMomSteps; ++s)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float y[8];
+            load8(xt + (s * 8 + 2 * t + h) * ys + k0, y);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float da = pa[i] - y[i], db = pb[i] - y[i];
+              mt[i] = fmaf(wn[s][h], __fmul_rn(da, da), mt[i]);
+              mt[i] = fmaf(wn[s][2 + h], __fmul_rn(db, db), mt[i]);
+            }
+          }
+        flush8(mt, k0);
+      }
+    }
+    m0 += s0;
+  }
+
+  // s0 of the block, then its warps' moments in order, into the partial
+  // row (added to it where `add`: a later launch's columns of V)
+  double* row = partial + (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * kMomRow;
+  double s0d[1] = {m0};
+  block_sum(s0d, row, tid, add != 0);  // its barrier also orders the warps' last sums
+  if (tid < d) {
+    double s = 0.0;
+    for (int w = 0; w < kMomWarps; ++w) s += wmom[w * kMomRow + tid];
+    row[1 + tid] = add ? row[1 + tid] + s : s;
+  }
+}
+
 template <int FAM, int DMAX>
 int launch_wide(const float* xs, const float* x2s, const float* v, const float* vmat,
                 float* out, int64_t n, int64_t m, int d, int r, cudaStream_t stream) {
@@ -1563,7 +1787,7 @@ int launch_moments_tile(const float* xs, const float* g, const float* vmat, cons
                                                                           n, d, r);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  gram_moments_reduce<<<1, 128, 0, s>>>(partial, v, out, tiles, 1, d, moments_scale<FAM>());
+  gram_moments_reduce<<<1, 128, 0, s>>>(partial, v, out, tiles, d, moments_scale<FAM>());
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1576,20 +1800,73 @@ int moments_tile(const float* xs, const float* g, const float* vmat, const float
   return launch_moments_tile<FAM, 16, DMAX>(xs, g, vmat, v, partial, out, n, d, r, s);
 }
 
-// D <= 8 and R <= 16: the register-tile kernel; otherwise the chunk kernel.
+// The mma kernel at D = d, R = r, on its own dimension bound DMAX and KS
+// k-steps of R (0: as many as the launch's columns need): launches of at
+// most kMomMaxR columns of V (fewer where shared memory is short), each
+// over ceil(n / 128) row blocks by `splits` column splits, the splits that
+// give the fewest waves of resident blocks a split (up to kMomMaxSplits),
+// then the reduce over the tiles x splits partial rows.
+template <int FAM, int DMAX, int KS>
+int launch_moments_mma(const float* xs, const float* g, const float* vmat, const float* v,
+                       double* partial, double* out, int64_t n, int d, int r, cudaStream_t s) {
+  const auto kernel = gram_moments_mma_kernel<FAM, DMAX, KS>;
+  int rmax = kMomMaxR;
+  while (rmax > 8 && mom_smem_bytes(DMAX, d, rmax / 8) > kMomSmemMax) rmax -= 8;
+  const int bytes_max = mom_smem_bytes(DMAX, d, ((r < rmax ? r : rmax) + 7) / 8);
+  if (bytes_max > kMomSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       bytes_max);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0, per = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kBlock, bytes_max)) !=
+          cudaSuccess)
+    return static_cast<int>(e);
+  const int64_t tiles = (n + kMomRows - 1) / kMomRows;
+  const int64_t slots = sms * per > 0 ? static_cast<int64_t>(sms) * per : 1;
+  int splits = 1;
+  for (int sp = 2; sp <= kMomMaxSplits; ++sp)  // waves a split: ceil(tiles sp / slots) / sp
+    if ((tiles * sp + slots - 1) / slots * splits < (tiles * splits + slots - 1) / slots * sp)
+      splits = sp;
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(splits));
+  for (int c0 = 0; c0 < r; c0 += rmax) {
+    const int rc = r - c0 < rmax ? r - c0 : rmax;
+    kernel<<<grid, kBlock, mom_smem_bytes(DMAX, d, (rc + 7) / 8), s>>>(xs, g, vmat, v, partial, n,
+                                                                      d, r, c0, rc, c0 > 0);
+    const int rc_err = static_cast<int>(cudaGetLastError());
+    if (rc_err != 0) return rc_err;
+  }
+  gram_moments_reduce<<<1, 128, 0, s>>>(partial, v, out, static_cast<int>(tiles) * splits, d,
+                                        moments_scale<FAM>());
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mma kernel's k-steps for R <= 16 fixed (1 or 2: W's mma.sync
+// unrolled, so the scheduler can run the next step's beside this one's
+// entries; a runtime count ran 9-30% slower on an H100), else as many as
+// each launch needs.
+template <int FAM, int DMAX>
+int moments_mma(const float* xs, const float* g, const float* vmat, const float* v,
+                double* partial, double* out, int64_t n, int d, int r, cudaStream_t s) {
+  if (r <= 8) return launch_moments_mma<FAM, DMAX, 1>(xs, g, vmat, v, partial, out, n, d, r, s);
+  if (r <= 16) return launch_moments_mma<FAM, DMAX, 2>(xs, g, vmat, v, partial, out, n, d, r, s);
+  return launch_moments_mma<FAM, DMAX, 0>(xs, g, vmat, v, partial, out, n, d, r, s);
+}
+
+// D <= 8 and R <= 16: the register-tile kernel; otherwise the mma kernel,
+// its coordinates in registers up to D = 12 (DMAX 4, 8, 12; DMAX 12 at D = 8
+// ran 13-22% slower), else in shared memory (two passes); at D <= 8 it
+// takes R > 16 only.
 template <int FAM>
 int moments_family(const float* xs, const float* g, const float* vmat, const float* v,
                    double* partial, double* out, int64_t n, int d, int r, cudaStream_t s) {
   if (d <= 4 && r <= 16) return moments_tile<FAM, 4>(xs, g, vmat, v, partial, out, n, d, r, s);
   if (d <= 8 && r <= 16) return moments_tile<FAM, 8>(xs, g, vmat, v, partial, out, n, d, r, s);
-  const int tiles = static_cast<int>((n + kTile - 1) / kTile);
-  const int nchunks = (d + kChunk - 1) / kChunk;
-  const dim3 block(kThreads, kThreads);
-  gram_moments_kernel<FAM><<<dim3(tiles, nchunks), block, 0, s>>>(xs, g, vmat, v, partial, n, d, r);
-  const int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  gram_moments_reduce<<<1, 128, 0, s>>>(partial, v, out, tiles, nchunks, d, 1.0);
-  return static_cast<int>(cudaGetLastError());
+  if (d <= 4) return launch_moments_mma<FAM, 4, 0>(xs, g, vmat, v, partial, out, n, d, r, s);
+  if (d <= 8) return launch_moments_mma<FAM, 8, 0>(xs, g, vmat, v, partial, out, n, d, r, s);
+  if (d <= 12) return moments_mma<FAM, 12>(xs, g, vmat, v, partial, out, n, d, r, s);
+  return moments_mma<FAM, 0>(xs, g, vmat, v, partial, out, n, d, r, s);
 }
 
 }  // namespace
@@ -1616,10 +1893,11 @@ int gram_matvec_fused_f32(const float* xs, const float* x2s, const float* v,
   }
 }
 
-// xs (n, d), g and vmat (n, r) float32, xs and vmat 16-byte aligned;
-// partial holds ceil(n / 64) * ceil(d / 16) * 17 doubles of scratch (the
-// register-tile kernel uses ceil(n / 128) * 17 of them); out (d + 1,)
-// float64.
+// xs (n, d), g and vmat (n, r) float32, xs and vmat 16-byte aligned; d <=
+// 127; partial holds ceil(n / 128) * 4 * 128 doubles of scratch (128-double
+// rows: the register-tile kernel uses ceil(n / 128) of them, the mma kernel
+// ceil(n / 128) times its column splits, at most kMomMaxSplits = 4); out
+// (d + 1,) float64.
 int gram_moments_f32(const float* xs, const float* g, const float* vmat, const float* v,
                      double* partial, double* out, int64_t n, int d, int r, int family,
                      void* stream) {

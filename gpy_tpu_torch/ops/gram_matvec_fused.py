@@ -21,7 +21,9 @@ measured and dropped: PERF.md, the B5 findings) and on the tensor cores for
 R > 16 (a predict's n* columns): 3xTF32 (K and V split into TF32 hi and lo,
 lo.hi + hi.lo + hi.hi), each 32-column tile's sum promoted once into a
 float32 running sum. Both are at least as accurate as the reference's
-3-pass "f32x3" and 1-pass "fast"; B6 contracts in FFMA.
+3-pass "f32x3" and 1-pass "fast". B6 forms W = G V' in FFMA where D <= 8
+and R <= 16 (its register-tile kernel) and in 3xTF32 on the tensor cores
+elsewhere (its mma kernel).
 
 r2: B5 forms it as the reference does above D = 8 (its :98-106), by the
 expansion |x|^2 + |x'|^2 - 2 x.x' clamped at 0, where D > 8 and R <= 16 (on
@@ -60,9 +62,9 @@ _ACCUM = ("exact", "f32x3", "fast")
 matvec_launches = 0
 moments_launches = 0
 
-_TILE = 64
-_CHUNK = 16              # dims per grid.y step (B6's chunk kernel)
-_MOM_STRIDE = _CHUNK + 1
+_MOM_ROWS = 128          # rows a B6 block (both kernels)
+_MOM_ROW = 128           # doubles of a B6 partial row (D + 1 <= 128)
+_MOM_SPLITS = 4          # column splits of B6's mma kernel, at most
 _MAX_GRID_Y = 65535
 _WIDE_COLS = 128         # R columns per grid.y step (B5's tensor-core kernel)
 _CENTRE_MIN_D = 9        # from here B5 forms r2 by the expansion (R <= 16)
@@ -252,9 +254,11 @@ def stationary_gram_matvec_cuda(Xs, X2s, V, v, family=0, diag_offset=-1):
 
 def gram_moments_cuda(Xs, G, V, v, family=0):
     """The B6 kernel: (D+1,) float64 moments on the square Gram of Xs (one
-    tile pass and a fixed-order reduction, on the current stream). Xs and V
-    are copied when their data is not 16-byte aligned (the register-tile
-    kernel copies their tiles 16 bytes at a time)."""
+    tile pass and a fixed-order reduction, on the current stream; past 64
+    columns of V, or fewer where D > 64, the mma kernel adds several passes
+    into the same rows). Xs and V are copied when their data is not 16-byte
+    aligned (the register-tile kernel copies their tiles 16 bytes at a
+    time)."""
     global moments_launches
     fn = "gram_moments_cuda"
     _check(fn, [("Xs", Xs), ("G", G), ("V", V), ("v", v)], Xs)
@@ -268,14 +272,13 @@ def gram_moments_cuda(Xs, G, V, v, family=0):
         raise ValueError(f"{fn}: unknown family {family!r}")
     N, D = Xs.shape
     R = G.shape[1]
-    if D + 1 > _MAX_MOMENTS or -(-D // _CHUNK) > _MAX_GRID_Y or R >= 2**31:
+    if D + 1 > _MAX_MOMENTS or R >= 2**31:
         raise ValueError(f"{fn}: D={D} exceeds {_MAX_MOMENTS - 1} or R={R} is too large")
     out = torch.empty(D + 1, dtype=torch.float64, device=Xs.device)
     if N == 0:
         return out.zero_()
     Xs, V = _aligned16(Xs), _aligned16(V)
-    tiles = -(-N // _TILE)
-    partial = torch.empty(tiles * -(-D // _CHUNK) * _MOM_STRIDE, dtype=torch.float64,
+    partial = torch.empty(-(-N // _MOM_ROWS) * _MOM_SPLITS * _MOM_ROW, dtype=torch.float64,
                           device=Xs.device)
     lib = _lib()
     with torch.cuda.device(Xs.device):

@@ -2,7 +2,7 @@
 """Probes the fused Gram-matvec kernel B5 and its gradient moments B6 on one CUDA card.
 
     python3 matvec_probe.py [--other LABEL=path/to/gram_matvec_fused.cu ...] [--phases]
-                            [--no-times] [--only wide|cross]
+                            [--no-times] [--only wide|cross|chunk]
                             [--predict-other LABEL=path/to/checkout ...]
                             [--objective-other LABEL=path/to/checkout ...]
 
@@ -26,6 +26,11 @@ then prints one JSON line each for:
   - B6 of every version on N=50,000 inputs against the float64 plain twin
     (within chip_smoke.FUSED_BWD_TOL_50K), and this version's bit for bit
     against a second launch of itself;
+  - B6 of every version at chip_smoke.MOMENT_SHAPES for every family on
+    positive inputs against the float64 plain twin, and at N=50,000 on
+    signed inputs (D=12, R=9 and D=4, R=17: the kernel for D > 8 or R > 16)
+    with a second launch; this version held within FUSED_BWD_TOL and
+    chip_smoke.MOMENTS_MMA_TOL_50K, bit for bit, the others read;
   - with --phases, copies of the source (PHASE_COPIES for B5's
     register-tile kernel, MOMENTS_PHASE_COPIES for B6, WIDE_PHASE_COPIES for
     B5's wide kernel, timed at R=256, CROSS_PHASE_COPIES for its cross-term
@@ -40,10 +45,12 @@ then prints one JSON line each for:
     float64 one); the bounds. B5 at D > 8 (CROSS_D by TIME_R: this
     version's cross-term kernel, a parent's chunk kernel) the same way, on
     centred inputs (as the wrapper centres them) with the cross-term
-    bounds. Then B6's chunk kernel (CHUNK_TIMES: D = 12, and R = 17) by
-    device time, with bounds; --only wide times B5's wide kernel alone
-    with WIDE_PHASE_COPIES, --only cross B5 at D > 8 alone with
-    CROSS_PHASE_COPIES;
+    bounds. Then B6 for D > 8 or R > 16 (CHUNK_TIMES: this version's mma
+    kernel, a parent's chunk kernel) by device time in turns, each
+    version's error against the float64 plain twin, with both bounds;
+    --only wide times B5's wide kernel alone with WIDE_PHASE_COPIES, --only
+    cross B5 at D > 8 alone with CROSS_PHASE_COPIES, --only chunk B6's mma
+    kernel alone with CHUNK_PHASE_COPIES (timed at D=12, R=9);
   - with --predict-other, the fused N=50,000 model's predict at 256 points
     (48 CG launches of B5 at R = 256) by host time, in a fresh process on
     each checkout in turns (others, this, this, others reversed);
@@ -74,20 +81,26 @@ CROSS_D = (9, 12, 20, 32)
 # mangled-name fragments of the main path's instances (family RBF): B5's
 # register-tile kernel at R = 9, 1, 16, its wide kernel (R > 16, D <= 4: a
 # predict's CG) and the parent's, its cross-term kernel at R = 9 (D > 8: the
-# D=12 path's CG) and the chunk kernel it replaced; B6's chunk kernel (the
-# D=12 path's B6), its register-tile kernel at R = 9, 1, 16
+# D=12 path's CG) and the chunk kernel it replaced; B6's mma kernel at DMAX
+# 12 (the D=12 path's B6), 4 (R > 16) and 0 (D > 12) and the chunk kernel it
+# replaced, its register-tile kernel at R = 9, 1, 16
 MAIN_PATH_SASS = (s.MAIN_B5_INSTANCE,
                   "gram_matvec_tile_kernelILi0ELi1ELi4E", "gram_matvec_tile_kernelILi0ELi16ELi4E",
                   s.WIDE_B5_INSTANCE, "gram_matvec_wide_kernelILi0EE",
                   s.CROSS_B5_INSTANCE, "gram_matvec_kernelILi0ELi9EE",
-                  "gram_moments_kernelILi0EE", s.MAIN_B6_INSTANCE,
+                  s.CHUNK_B6_INSTANCE, "gram_moments_mma_kernelILi0ELi4ELi0EE",
+                  "gram_moments_mma_kernelILi0ELi0ELi2EE", "gram_moments_kernelILi0EE",
+                  s.MAIN_B6_INSTANCE,
                   "gram_moments_tile_kernelILi0ELi1ELi4E", "gram_moments_tile_kernelILi0ELi16ELi4E")
-# B6's chunk kernel at N=50,000 (D, R): at D > 8 (the D=12 path's one
-# launch an NLML+gradient) and at R > 16
-CHUNK_TIMES = ((12, 9), (4, 17))
-# the profiler's names of B6's kernel at D=4: the register-tile kernel, or
-# the chunk kernel of a source that has none
-B6_TILE, B6_CHUNK = s.B6_KERNEL, s.B6_CHUNK_KERNEL
+# B6 for D > 8 or R > 16 at N=50,000 (D, R): D = 9, 12, 20, 32 by R = 1, 9,
+# 16 (D = 12, R = 9: the D=12 path's one launch an NLML+gradient), and R > 16
+CHUNK_TIMES = tuple((D, R) for D in (9, 12, 20, 32) for R in (1, 9, 16)) + ((4, 17), (4, 64))
+# the signed N=50,000 checks (chip_smoke.MOMENTS_MMA_TOL_50K)
+CHUNK_SIGNED = ((12, 9), (4, 17))
+# the profiler's names of B6's kernels: at D=4, R <= 16 the register-tile
+# kernel, or the chunk kernel of a source that has none; at D > 8 or R > 16
+# the mma kernel, or a parent's chunk kernel
+B6_TILE, B6_CHUNK, B6_OLD_CHUNK = s.B6_KERNEL, s.B6_CHUNK_KERNEL, "gram_moments_kernel<"
 
 # Copies of the checkout's source that cut B5's register-tile kernel
 # (--phases). Phases deleted (results wrong, not checked): K left as r2 (no
@@ -187,6 +200,101 @@ MOMENTS_PHASE_COPIES = {
 }
 
 
+# Copies that cut B6's mma kernel (--phases or --only chunk; timed at D=12,
+# R=9, its one-pass instance). mom_ffma_w: W in FFMA on the SIMT cores,
+# the thread's rows of v G in registers (R = 9 written in) and V's rows read
+# unsplit from the B-fragment tile (results right; the comparison the
+# design asks for at R <= 16); mom_no_mma: W left at a sum of its operands
+# (no tensor cores); mom_no_exp: the weights left as w r2' and w;
+# mom_no_moments: the D moment sums replaced by one of wn r2'; and
+# mom_staging_only: the tiles copied, folded and split, nothing computed.
+_MOM_MMA = """      mma_tf32(cl, al, b.x, b.y);
+      mma_tf32(cl, ah, b.z, b.w);
+      mma_tf32(c, ah, b.x, b.y);
+"""
+_MOM_WSTEP = """  auto w_step = [&](const float* bt, int s, float (&c)[4]) {
+    float cl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    c[0] = c[1] = c[2] = c[3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < ks_n; ++kk) {
+      const float4 ah = *reinterpret_cast<const float4*>(at + kk * 256);
+      const float4 al = *reinterpret_cast<const float4*>(at + kk * 256 + 128);
+      const float4 b = *reinterpret_cast<const float4*>(bt + (s * ks_n + kk) * 128);
+""" + _MOM_MMA + """    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[q] += cl[q];
+  };
+"""
+_MOM_FFMA = """  float gfa[9], gfb[9];  // the thread's rows of v G, R = 9
+#pragma unroll
+  for (int cc = 0; cc < 9; ++cc) {
+    gfa[cc] = (ra < n && cc < rc) ? __fmul_rn(vv, g[ra * r + c0 + cc]) : 0.0f;
+    gfb[cc] = (rb < n && cc < rc) ? __fmul_rn(vv, g[rb * r + c0 + cc]) : 0.0f;
+  }
+  auto w_step = [&](const float* bt, int s, float (&c)[4]) {
+    const float* bs = bt - lane * 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float va[16];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float2 f = *reinterpret_cast<const float2*>(
+              bs + ((s * 2 + kk) * 32 + 4 * (2 * t + h) + m) * 4);
+          va[kk * 8 + m] = f.x;
+          va[kk * 8 + m + 4] = f.y;
+        }
+      float wa = 0.0f, wb = 0.0f;
+#pragma unroll
+      for (int cc = 0; cc < 9; ++cc) {
+        wa = fmaf(gfa[cc], va[cc], wa);
+        wb = fmaf(gfb[cc], va[cc], wb);
+      }
+      c[h] = wa;
+      c[2 + h] = wb;
+    }
+  };
+"""
+_MOM_SPLIT = ("      split_tf32(c < rc ? rv[c] : 0.0f, o.x, o.z);\n"
+              "      split_tf32(c + 4 < rc ? rv[c + 4] : 0.0f, o.y, o.w);\n",
+              "      o = make_float4(c < rc ? rv[c] : 0.0f, c + 4 < rc ? rv[c + 4] : 0.0f, 0.0f, 0.0f);\n")
+CHUNK_PHASE_COPIES = {
+    "mom_ffma_w": [(_MOM_WSTEP, _MOM_FFMA), _MOM_SPLIT],
+    "mom_no_mma": [(_MOM_MMA, "      c[0] += b.x; c[1] += b.y; c[2] += ah.x; c[3] += al.x;\n")],
+    "mom_no_exp": [("moment_weights<FAM>(r2, c[2 * q + h], wk, wn);",
+                    "wk = c[2 * q + h] * r2;\n            wn = c[2 * q + h];")],
+    "mom_no_moments": [("for (int e = 0; e < kDX; ++e) mt[e] = fmaf(wn, dq[e], mt[e]);",
+                        "for (int e = 0; e < 1; ++e) mt[e] = fmaf(wn, r2, mt[e]);")],
+    "mom_staging_only": [("    if (k + 2 < nt) issue(k + 2);\n    const float* xt",
+                          "    if (k + 2 < nt) issue(k + 2);\n    continue;\n    const float* xt")],
+}
+
+
+# Design alternatives of B6's mma kernel (--phases or --only chunk; results
+# right, read not checked), each timed beside it at its CHUNK_DESIGN_TIMES:
+# mom_ks_runtime, the k-steps of R a runtime count at every R (no KS = 1, 2
+# instances); mom_dmax12_at_8, 4 < D <= 8 (R > 16) on the DMAX 12 instance;
+# mom_no_split, one column split (grid.y = 1). (4-byte copies straight into
+# the compute layout, the kernel before its 16-byte raw copies, are timed as
+# an --other source: PERF.md.)
+CHUNK_DESIGN_COPIES = {
+    "mom_ks_runtime": [("launch_moments_mma<FAM, DMAX, 1>", "launch_moments_mma<FAM, DMAX, 0>"),
+                       ("launch_moments_mma<FAM, DMAX, 2>", "launch_moments_mma<FAM, DMAX, 0>")],
+    "mom_dmax12_at_8": [("if (d <= 8) return launch_moments_mma<FAM, 8, 0>",
+                         "if (d <= 8) return launch_moments_mma<FAM, 12, 0>")],
+    "mom_no_split": [("for (int sp = 2; sp <= kMomMaxSplits; ++sp)",
+                      "for (int sp = 2; sp <= 1; ++sp)")],
+}
+# (D, R) at N=50,000 where each design alternative differs from the kept
+# kernel: the fixed k-steps (R <= 16, one pass and two), the DMAX 8 instance
+# (R > 16, one launch and two), the splits (one pass, two, D <= 4)
+CHUNK_DESIGN_TIMES = {
+    "mom_ks_runtime": ((12, 1), (12, 9), (12, 16), (20, 9)),
+    "mom_dmax12_at_8": ((8, 17), (8, 72)),
+    "mom_no_split": ((12, 9), (20, 9), (4, 17)),
+}
+
 # Copies of the checkout's source that cut B5's wide kernel (--phases or
 # --only wide; timed at R=256 only; results wrong, not checked). Phases
 # deleted: K left as r2 (no exponential), the contraction's wgmma replaced
@@ -210,9 +318,12 @@ WIDE_PHASE_COPIES = {
 }
 
 
-def launchers(so, label, diag_abi):
+def launchers(so, label, diag_abi, mma_scratch):
     """B5 and B6 of a build, through its C interface; `diag_abi`: B5 takes
-    the diagonal's row offset (0 here: every probe product is square)."""
+    the diagonal's row offset (0 here: every probe product is square);
+    `mma_scratch`: B6 takes the mma kernel's scratch (128-double rows, 4 a
+    128-row block), else the chunk kernel's (17-double rows a 64-row tile
+    and 16-dimension chunk)."""
     import torch
 
     lib = ctypes.CDLL(so)
@@ -233,17 +344,23 @@ def launchers(so, label, diag_abi):
         s.check(rc == 0, f"{label} gram_matvec_fused launch failed: {rc}")
         return out
 
-    def moments(Xs, G, V, v):
+    def moments(Xs, G, V, v, family=0):
         N, D = Xs.shape
-        partial = torch.empty(-(-N // 64) * -(-D // 16) * 17, dtype=torch.float64,
-                              device=Xs.device)
+        size = -(-N // 128) * 4 * 128 if mma_scratch else -(-N // 64) * -(-D // 16) * 17
+        partial = torch.empty(size, dtype=torch.float64, device=Xs.device)
         out = torch.empty(D + 1, dtype=torch.float64, device=Xs.device)
         rc = lib.gram_moments_f32(Xs.data_ptr(), G.data_ptr(), V.data_ptr(), v.data_ptr(),
-                                  partial.data_ptr(), out.data_ptr(), N, D, G.shape[1], 0,
+                                  partial.data_ptr(), out.data_ptr(), N, D, G.shape[1], family,
                                   torch.cuda.current_stream().cuda_stream)
         s.check(rc == 0, f"{label} gram_moments launch failed: {rc}")
         return out
     return matvec, moments
+
+
+def has_mma_moments(src):
+    """Whether a source's B6 for D > 8 or R > 16 is the mma kernel (its
+    scratch and profiler name), not a parent's chunk kernel."""
+    return "gram_moments_mma_kernel" in open(src).read()
 
 
 def has_diag_abi(src):
@@ -407,23 +524,77 @@ def cross_times(versions, fm, ds, rs):
     return rows
 
 
-def chunk_times(fm):
-    """This version's B6 chunk kernel (CHUNK_TIMES) at N=50,000 by device
-    time per launch, with its bound and its reduce's time."""
+def chunk_checks(fns, fm):
+    """B6 of every version in `fns` where D > 8 or R > 16 reaches this
+    version's mma kernel: at chip_smoke.MOMENT_SHAPES for every family on
+    positive inputs (chip_smoke.check_fused_moments' distributions) against
+    the float64 plain twin, relative to max|ref|; at N=50,000 on signed G and
+    V (CHUNK_SIGNED) the same, and each version's second launch bit for bit.
+    This version is held within FUSED_BWD_TOL and MOMENTS_MMA_TOL_50K; the
+    others' readings are recorded."""
     import torch
 
     rows = []
-    for D, R in CHUNK_TIMES:
-        X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, D, R, seed=11)
-        Xs = (X / ls).contiguous()
-        v1 = v.reshape(1)
+    for N, D, R in s.MOMENT_SHAPES:
+        for fname, fam in s.FAMILIES.items():
+            X, _, V, ls, v = s.fused_inputs(N, None, D, R, seed=300 + D + fam + R, positive=True)
+            _, _, G, _, _ = s.fused_inputs(N, None, D, R, seed=400 + D + fam + R, positive=True)
+            Xs = (X / ls).contiguous()
+            ref = fm.gram_moments_plain(Xs.double(), G.double(), V.double(),
+                                        v.reshape(1).double(), fam)
+            err = {label: float((fn(Xs, G, V, v.reshape(1), fam) - ref).abs().max()
+                                / ref.abs().max()) for label, fn in fns.items()}
+            s.check(err["this"] <= s.FUSED_BWD_TOL,
+                    f"gram_moments {fname} N={N} D={D} R={R}: rel err {err['this']} "
+                    f"> {s.FUSED_BWD_TOL}")
+            rows.append({"family": fname, "N": N, "D": D, "R": R, "rel_err_vs_f64_plain": err})
+    signed = []
+    for D, R in CHUNK_SIGNED:
+        X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, D, R, seed=12)
         _, _, G, _, _ = s.fused_inputs(s.ITER_N, None, D, R, seed=13)
-        ms, reduce_ms, _, _ = s.device_ms(lambda: fm.gram_moments_cuda(Xs, G, V, v1, 0),
-                                          reps=5, warmup=1, kernel=B6_CHUNK)
-        bound_ms, bound_by = s.gram_moments_bound(s.ITER_N, D, R)
-        rows.append({"N": s.ITER_N, "D": D, "R": R, "kernel": "B6 chunk (gram_moments_kernel)",
-                     "ms": ms, "reduce_ms": reduce_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        inputs = ((X / ls).contiguous(), G, V, v.reshape(1))
+        err, _ = moments_errors(fns, fm, inputs)
+        same = {label: bool(torch.equal(fn(*inputs), fn(*inputs))) for label, fn in fns.items()}
+        tol = s.MOMENTS_MMA_TOL_50K[(D, R)]
+        s.check(err["this"] <= tol and same["this"],
+                f"gram_moments N={s.ITER_N} D={D} R={R} signed: rel err {err['this']} > {tol} "
+                f"or two launches differ")
+        signed.append({"N": s.ITER_N, "D": D, "R": R, "rel_err_vs_f64_plain": err,
+                       "rel_tol": tol, "repeats_bit_for_bit": same})
+        del X, V, G, inputs
+        torch.cuda.empty_cache()
+    return {"shapes": rows, "max_rel_err": {label: max(r["rel_err_vs_f64_plain"][label]
+                                                       for r in rows) for label in fns},
+            "rel_tol": s.FUSED_BWD_TOL, "signed_50k": signed}
+
+
+def chunk_times(fns, names, fm, shapes):
+    """Each version's B6 device time per launch at N=50,000 for (D, R) in
+    `shapes`, where D > 8 or R > 16 (this version's mma kernel, a parent's
+    chunk kernel; the kernel named in `names`, its reduce beside it), in
+    turns, with each version's error against the float64 plain twin (read,
+    not checked) and both bounds."""
+    import torch
+
+    versions = list(fns)
+    rows = []
+    for D, R in shapes:
+        X, _, V, ls, v = s.fused_inputs(s.ITER_N, None, D, R, seed=11)
+        _, _, G, _, _ = s.fused_inputs(s.ITER_N, None, D, R, seed=13)
+        inputs = ((X / ls).contiguous(), G, V, v.reshape(1))
+        err, _ = moments_errors(fns, fm, inputs)
+        got = {label: [] for label in versions}
+        reduce = {label: [] for label in versions}
+        for label in versions + versions[::-1]:
+            ms, reduce_ms, _, _ = s.device_ms(lambda: fns[label](*inputs), reps=5, warmup=1,
+                                              kernel=names[label])
+            got[label].append(ms)
+            reduce[label].append(reduce_ms)
+        rows.append({"N": s.ITER_N, "D": D, "R": R, "device_ms": got, "reduce_device_ms": reduce,
+                     "kernel": names, "rel_err_vs_f64_plain": err,
+                     **s.gram_moments_bounds(s.ITER_N, D, R)})
         s.emit({"phase": "chunk_times_row", **rows[-1]})
+        del X, V, G, inputs
         torch.cuda.empty_cache()
     return rows
 
@@ -535,13 +706,14 @@ def main() -> int:
     ap.add_argument("--other", action="append", default=[], metavar="LABEL=PATH",
                     help="another gram_matvec_fused.cu")
     ap.add_argument("--phases", action="store_true",
-                    help="also time PHASE_COPIES (and B6's, the wide and the cross-term "
-                         "kernel's) of the checkout's source")
+                    help="also time PHASE_COPIES (and B6's, its mma kernel's, the wide and "
+                         "the cross-term kernel's) of the checkout's source")
     ap.add_argument("--no-times", action="store_true",
                     help="build, report and check only")
-    ap.add_argument("--only", choices=["wide", "cross"],
-                    help="time B5's wide kernel (with WIDE_PHASE_COPIES) or its cross-term "
-                         "kernel (with CROSS_PHASE_COPIES) only")
+    ap.add_argument("--only", choices=["wide", "cross", "chunk"],
+                    help="time B5's wide kernel (with WIDE_PHASE_COPIES), its cross-term "
+                         "kernel (with CROSS_PHASE_COPIES) or B6's mma kernel (with "
+                         "CHUNK_PHASE_COPIES) only")
     ap.add_argument("--predict-other", action="append", default=[], metavar="LABEL=DIR",
                     help="another checkout to time the fused model's predict on")
     ap.add_argument("--objective-other", action="append", default=[], metavar="LABEL=DIR",
@@ -558,9 +730,11 @@ def main() -> int:
             "cuda": torch.version.cuda})
     src = os.path.join(_build.CSRC_DIR, NAME + ".cu")
     others = [o.split("=", 1) for o in args.other]
-    copies = ({**PHASE_COPIES, **MOMENTS_PHASE_COPIES, **WIDE_PHASE_COPIES, **CROSS_PHASE_COPIES}
+    chunk_copies = {**CHUNK_PHASE_COPIES, **CHUNK_DESIGN_COPIES}
+    copies = ({**PHASE_COPIES, **MOMENTS_PHASE_COPIES, **WIDE_PHASE_COPIES, **CROSS_PHASE_COPIES,
+               **chunk_copies}
               if args.phases else {"wide": WIDE_PHASE_COPIES, "cross": CROSS_PHASE_COPIES,
-                                   None: {}}[args.only])
+                                   "chunk": chunk_copies, None: {}}[args.only])
     if copies:
         others += phase_copies(src, os.path.join(_build.BUILD_DIR, "matvec_phases"), copies)
     sources = {**dict(others), "this": src}
@@ -577,21 +751,26 @@ def main() -> int:
             kernels = {k: (v if any(m in k for m in MAIN_PATH_SASS)
                            else {"instructions": v["instructions"]})
                        for k, v in kernels.items()
-                       if re.search(r"\dgram_(matvec_(tile_|wide_|tc_|cross_)?|moments_(tile_)?)"
+                       if re.search(r"\dgram_(matvec_(tile_|wide_|tc_|cross_)?|moments_(tile_|mma_)?)"
                                     r"kernelI", k)}
         s.emit({"phase": "sass", "version": label, "kernels": kernels,
                 "wide_tensor_core_ops": tensor_core_ops(label, s.WIDE_B5_INSTANCE),
-                "cross_tensor_core_ops": tensor_core_ops(label, s.CROSS_B5_INSTANCE)})
+                "cross_tensor_core_ops": tensor_core_ops(label, s.CROSS_B5_INSTANCE),
+                "chunk_tensor_core_ops": tensor_core_ops(label, s.CHUNK_B6_INSTANCE)})
 
-    fns = {label: launchers(path, label, has_diag_abi(sources[label]))
+    fns = {label: launchers(path, label, has_diag_abi(sources[label]),
+                            has_mma_moments(sources[label]))
            for label, (path, _) in builds.items()}
     b5_only = set(PHASE_COPIES) | set(WIDE_PHASE_COPIES) | set(CROSS_PHASE_COPIES)
+    b6_only = set(MOMENTS_PHASE_COPIES) | set(CHUNK_PHASE_COPIES) | set(CHUNK_DESIGN_COPIES)
     b6 = {label: f[1] for label, f in fns.items() if label not in b5_only}
-    s.emit({"phase": "gram_moments_check", **check_moments(b6, fm, set(MOMENTS_PHASE_COPIES))})
+    s.emit({"phase": "gram_moments_check", **check_moments(b6, fm, b6_only)})
+    b6_full = {label: fn for label, fn in b6.items() if label not in b6_only}
+    s.emit({"phase": "chunk_checks", "nvidia_smi": smi, **chunk_checks(b6_full, fm)})
     s.emit({"phase": "wide_checks", **wide_checks(fm)})
     s.emit({"phase": "cross_checks", **cross_checks(fm)})
     if not args.no_times:
-        versions = [(label, f[0]) for label, f in fns.items() if label not in MOMENTS_PHASE_COPIES]
+        versions = [(label, f[0]) for label, f in fns.items() if label not in b6_only]
         full = [(label, fn) for label, fn in versions if label not in b5_only]
         if args.only is None:
             s.emit({"phase": "times", "nvidia_smi": smi,
@@ -610,8 +789,22 @@ def main() -> int:
             if cuts:
                 s.emit({"phase": "cross_phase_times", "nvidia_smi": smi,
                         "rows": cross_times([("this", fns["this"][0])] + cuts, fm, (12,), (9,))})
+        if args.only in (None, "chunk"):
+            chunk_names = {label: B6_CHUNK if has_mma_moments(sources[label]) else B6_OLD_CHUNK
+                           for label in b6}
+            s.emit({"phase": "chunk_times", "nvidia_smi": smi,
+                    "rows": chunk_times(b6_full, chunk_names, fm, CHUNK_TIMES)})
+            cuts = {label: fn for label, fn in b6.items() if label in CHUNK_PHASE_COPIES}
+            if cuts:
+                s.emit({"phase": "chunk_phase_times", "nvidia_smi": smi,
+                        "rows": chunk_times({"this": b6["this"], **cuts}, chunk_names, fm,
+                                            ((12, 9),))})
+            for label, shapes in CHUNK_DESIGN_TIMES.items():
+                if label in b6:
+                    s.emit({"phase": "chunk_design_times", "design": label, "nvidia_smi": smi,
+                            "rows": chunk_times({"this": b6["this"], label: b6[label]},
+                                                chunk_names, fm, shapes)})
         if args.only is None:
-            s.emit({"phase": "chunk_times", "nvidia_smi": smi, "rows": chunk_times(fm)})
             names = {label: B6_TILE if "gram_moments_tile_kernel" in builds[label][1] else B6_CHUNK
                      for label in b6}
             s.emit({"phase": "moments_times", "nvidia_smi": smi,

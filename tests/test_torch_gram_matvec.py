@@ -246,20 +246,26 @@ def test_diag_offset_sets_the_diagonal_exactly():
 
 # --- B6: the differentiable form's backward against the reference VJP -------
 
-@pytest.mark.parametrize("ARD", [True, False], ids=["ARD", "scalar_ls"])
+@pytest.mark.parametrize("case", [(600, 3, 4, True), (600, 3, 4, False), (256, 12, 9, True),
+                                  (256, 4, 17, True)],
+                         ids=["ARD", "scalar_ls", "chunk_d12_r9", "chunk_d4_r17"])
 @pytest.mark.parametrize("name", list(FAMILY))
-def test_fused_diff_vjp_matches_reference(name, ARD):
+def test_fused_diff_vjp_matches_reference(name, case):
     """jax.vjp of stationary_gram_matvec_fused_diff (B6 in interpret mode)
     against torch autograd of the port's (B6's plain twin): dV, dvariance,
     dlengthscale, dnoise, and dX = 0. float32 kernels on both sides: the
-    tolerances are float32 sums of ~N^2 terms."""
-    rng = np.random.default_rng(40 + FAMILY[name])
-    N, D, R = 600, 3, 4
+    tolerances are float32 sums of ~N^2 terms. (N, D, R, ARD): D = 3, R = 4
+    with ARD and scalar lengthscales, and the domain of the card's mma
+    kernel (D > 8 or R > 16) at D = 12, R = 9 (the reference's forward
+    forms r2 by the expansion there) and D = 4, R = 17."""
+    N, D, R, ARD = case
+    rng = np.random.default_rng(40 + FAMILY[name] + (0 if D == 3 else D + R))
     X = rng.random((N, D)) * 3.0
     V = rng.standard_normal((N, R))
     G = rng.standard_normal((N, R))
     noise = 0.1 + 0.05 * rng.random(N)
-    ls = np.array([0.9, 1.2, 0.7]) if ARD else np.asarray(1.1)
+    ls = ((np.array([0.9, 1.2, 0.7]) if D == 3 else np.sqrt(D / 3.0) * (0.7 + 0.6 * rng.random(D)))
+          if ARD else np.asarray(1.1))
     fam = FAMILY[name]
 
     def f(X_, V_, v_, l_, n_):

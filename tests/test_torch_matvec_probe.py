@@ -12,12 +12,13 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 
 
 @pytest.mark.parametrize("copies", ["PHASE_COPIES", "CROSS_PHASE_COPIES",
-                                    "MOMENTS_PHASE_COPIES", "WIDE_PHASE_COPIES"])
+                                    "MOMENTS_PHASE_COPIES", "WIDE_PHASE_COPIES",
+                                    "CHUNK_PHASE_COPIES", "CHUNK_DESIGN_COPIES"])
 def test_phase_copies_apply_to_the_kernel_source(tmp_path, copies):
     """Each copy finds its text in csrc/gram_matvec_fused.cu exactly once
     (B5's register-tile kernel's, its cross-term kernel's (D > 8), B6's
-    register-tile kernel's and B5's wide kernel's), so an edit of the kernel
-    that moves that text fails here, not on the card."""
+    register-tile kernel's, B5's wide kernel's and B6's mma kernel's), so an
+    edit of the kernel that moves that text fails here, not on the card."""
     table = getattr(matvec_probe, copies)
     original = open(SRC).read()
     for subs in table.values():
@@ -150,3 +151,47 @@ def test_probe_calls_each_version_with_its_own_c_interface(tmp_path):
     old.write_text(src.replace("int r, int family, int64_t diag, void* stream",
                                "int r, int family, void* stream"))
     assert not matvec_probe.has_diag_abi(str(old))
+
+
+def _moments_family(src):
+    body = src[src.index("int moments_family("):]
+    return body[:body.index("\n}\n")]
+
+
+@pytest.mark.parametrize("d, r, route", [(4, 9, "tile<FAM, 4>"), (8, 16, "tile<FAM, 8>"),
+                                         (4, 17, "mma<FAM, 4, 0>"), (8, 64, "mma<FAM, 8, 0>"),
+                                         (9, 1, "mma<FAM, 12>"), (12, 9, "mma<FAM, 12>"),
+                                         (13, 9, "mma<FAM, 0>"), (127, 1, "mma<FAM, 0>")])
+def test_chunk_domain_routes_to_the_mma_kernel(d, r, route):
+    """moments_family sends D > 8 or R > 16 to the mma kernel (DMAX 4, 8 and
+    12 in registers, 0: two passes above D = 12), after the register-tile
+    kernel's two branches; moments_mma fixes its k-steps at 1 and 2 for R
+    <= 8 and <= 16; the chunk kernel it replaced and its launch are gone;
+    the instance chip_smoke.py and matvec_probe.py name for the D=12 path
+    (RBF, DMAX 12, two k-steps) and the profiler name the launch checks
+    read are the new kernel's."""
+    src = open(SRC).read()
+    lines = [ln.strip() for ln in _moments_family(src).splitlines() if "return" in ln]
+    conds = [("d <= 4 && r <= 16", "tile<FAM, 4>"), ("d <= 8 && r <= 16", "tile<FAM, 8>"),
+             ("d <= 4)", "mma<FAM, 4, 0>"), ("d <= 8)", "mma<FAM, 8, 0>"),
+             ("d <= 12)", "mma<FAM, 12>"), ("", "mma<FAM, 0>")]
+    assert len(lines) == len(conds)
+    for ln, (cond, target) in zip(lines, conds):
+        assert cond in ln and target in ln
+    taken = next(t for c, t in [(d <= 4 and r <= 16, "tile<FAM, 4>"),
+                                (d <= 8 and r <= 16, "tile<FAM, 8>"), (d <= 4, "mma<FAM, 4, 0>"),
+                                (d <= 8, "mma<FAM, 8, 0>"), (d <= 12, "mma<FAM, 12>"),
+                                (True, "mma<FAM, 0>")] if c)
+    assert taken == route
+    body = src[src.index("int moments_mma("):]
+    body = body[:body.index("\n}\n")]
+    assert "if (r <= 8) return launch_moments_mma<FAM, DMAX, 1>" in body
+    assert "if (r <= 16) return launch_moments_mma<FAM, DMAX, 2>" in body
+    assert "return launch_moments_mma<FAM, DMAX, 0>" in body
+    assert "gram_moments_kernel<" not in src and "gram_moments_kernel(" not in src
+    assert "template <int FAM, int DMAX, int KS>\n__global__ void __launch_bounds__(kBlock, " \
+           "mom_min_blocks(DMAX))\ngram_moments_mma_kernel(" in src
+    assert chip_smoke.B6_CHUNK_KERNEL == "gram_moments_mma_kernel<"
+    assert chip_smoke.CHUNK_B6_INSTANCE == "gram_moments_mma_kernelILi0ELi12ELi2EE"
+    assert chip_smoke.CHUNK_B6_INSTANCE in matvec_probe.MAIN_PATH_SASS
+    assert matvec_probe.has_mma_moments(SRC)
